@@ -1,0 +1,23 @@
+"""shakti_tpu_torch: the SHAKTI subglacial-hydrology solver on PyTorch/CUDA.
+
+A port of ``shakti_tpu`` (the JAX package beside it, which stays the
+reference) to PyTorch on an NVIDIA H100.  The layout mirrors
+``shakti_tpu`` module for module, so each function's counterpart is found
+under the same path:
+
+  mesh/      device Mesh (frozen dataclass of tensors) + block-ELL structure
+  fem/       gather/scatter/averaging primitives, block-ELL operator
+  physics/   constitutive laws + weak-form residual and element Jacobian
+  solve/     Newton + PCG + two-level preconditioner + time stepping
+  ops/       hand-written CUDA kernels (csrc/) and their plain twins
+  api/       ModelSetup and the transient run layer
+  setups/    experiment setups built on this package's ModelSetup
+
+JAX's ``while_loop``/``scan``/``cond`` become Python loops and ``if``s; each
+convergence test is a host sync.  The numpy-only host modules of
+``shakti_tpu`` (params, fem/p1, mesh/{generate,msh_io,geometry},
+parallel/partition, native) are imported as they are; nothing here imports
+jax.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,103 @@
+"""Block-ELL (BSR-style) operator format on torch tensors.
+
+Port of shakti_tpu/fem/bell.py.  Nodes are RCB-ordered (api/model.freeze)
+and chunked into blocks of B; the assembled operator is dense B x B blocks
+``vals`` (NB, KB, B, B) with neighbour-block ids ``nbr`` (NB, KB) (padding
+slots point at their own row block and hold zeros).
+
+The element -> block fold is a deterministic gather (:func:`gather_plan`):
+CUDA's ``index_add_`` would sum shared slots with atomics, in an order that
+changes from run to run.  The matvec on CUDA tensors is the hand-written
+kernel in ops/spmv_cuda.py.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from shakti_tpu_torch.fem.ops import fixed_sum
+from shakti_tpu_torch.ops.spmv_cuda import bell_matvec  # noqa: F401
+
+BLOCK = 128
+
+
+def build_block_ell(cells: np.ndarray, n_nodes: int, B: int = BLOCK):
+    """Host-side: block sparsity + element->slot mapping (numpy; a copy of
+    shakti_tpu/fem/bell.py:build_block_ell, whose module imports jax).
+
+    Returns (nbr (NB, KB) int32, slot_map (9*c,) flat positions into
+    vals (NB, KB, B, B), diag_pos (n_nodes,), KB)."""
+    from shakti_tpu import native
+    if native.available():
+        nat = native.bell_build(np.asarray(cells, np.int32), n_nodes, B)
+        if nat is not None:
+            return nat
+    NB = -(-n_nodes // B)
+    c = cells.shape[0]
+    rows = np.broadcast_to(cells[:, :, None], (c, 3, 3)).reshape(-1).astype(np.int64)
+    cols = np.broadcast_to(cells[:, None, :], (c, 3, 3)).reshape(-1).astype(np.int64)
+    brow, bcol = rows // B, cols // B
+
+    bkey = brow * NB + bcol
+    uniq = np.unique(bkey)
+    ur, uc = uniq // NB, (uniq % NB).astype(np.int32)
+    deg = np.bincount(ur, minlength=NB)
+    KB = int(deg.max())
+    start = np.concatenate([[0], np.cumsum(deg)])
+    kb_of_pair = np.arange(uniq.size) - start[ur]
+
+    nbr = np.broadcast_to(np.arange(NB, dtype=np.int32)[:, None], (NB, KB)).copy()
+    nbr[ur, kb_of_pair] = uc
+
+    pos = np.searchsorted(uniq, bkey)
+    kb = kb_of_pair[pos]
+    slot_map = (((brow * KB + kb) * B + rows % B) * B + cols % B).astype(np.int64)
+
+    r = np.arange(n_nodes, dtype=np.int64)
+    br = r // B
+    dkey = br * NB + br
+    dpos = np.clip(np.searchsorted(uniq, dkey), 0, uniq.size - 1)
+    dkb = np.where(uniq[dpos] == dkey, kb_of_pair[dpos], 0)
+    diag_pos = (((br * KB + dkb) * B + r % B) * B + r % B).astype(np.int64)
+    return nbr, slot_map, diag_pos, KB
+
+
+def gather_plan(keys: np.ndarray):
+    """Host-side plan for a deterministic segment sum over ``keys``.
+
+    Returns (slots (U,) the distinct keys, idx (U, M) the positions of each
+    key's values in input order, padded with the sentinel len(keys), which
+    indexes an appended zero).  :func:`plan_sum` applies it."""
+    keys = np.asarray(keys, dtype=np.int64).reshape(-1)
+    order = np.argsort(keys, kind="stable")
+    slots, start, counts = np.unique(keys[order], return_index=True,
+                                     return_counts=True)
+    M = int(counts.max()) if counts.size else 0
+    idx = np.full((slots.size, M), keys.size, dtype=np.int64)
+    rank = np.arange(keys.size) - np.repeat(start, counts)
+    idx[np.repeat(np.arange(slots.size), counts), rank] = order
+    return slots, idx
+
+
+def plan_sum(values, slots, idx, size: int):
+    """out (size,) with out[slots[u]] = sum_m values[idx[u, m]] summed in m
+    order, zero elsewhere: a segment sum without atomics."""
+    flat = values.reshape(-1)
+    ext = torch.cat([flat, flat.new_zeros(1)])
+    out = flat.new_zeros(size)
+    out[slots] = fixed_sum(ext[idx], 1)
+    return out
+
+
+def bell_from_elements(J_c, mesh):
+    """Fold element blocks (c, 3, 3) into vals (NB, KB, B, B)."""
+    NB, KB = mesh.bell_nbr.shape
+    B = mesh.bell_B
+    vals = plan_sum(J_c, mesh.bell_fold_slots, mesh.bell_fold_idx,
+                    NB * KB * B * B)
+    return vals.reshape(NB, KB, B, B)
+
+
+def bell_diag(vals, diag_pos):
+    return vals.reshape(-1)[diag_pos]
