@@ -5,19 +5,24 @@ reference) to PyTorch on an NVIDIA H100.  The layout mirrors
 ``shakti_tpu`` module for module, so each function's counterpart is found
 under the same path:
 
-  mesh/      device Mesh (frozen dataclass of tensors) + block-ELL structure
-  fem/       gather/scatter/averaging primitives, block-ELL operator
+  params     physical constants
+  mesh/      device Mesh (frozen dataclass of tensors) + block-ELL structure,
+             host mesh generation, .msh reading and boundary geometry
+  fem/       gather/scatter/averaging primitives, quadrature, block-ELL
+             operator
   physics/   constitutive laws + weak-form residual and element Jacobian
   solve/     Newton + PCG + two-level preconditioner + time stepping
   ops/       hand-written CUDA kernels (csrc/) and their plain twins
+  data/      gridded-data interpolation onto the mesh
+  parallel/  RCB node ordering
   api/       ModelSetup and the transient run layer
   setups/    experiment setups built on this package's ModelSetup
 
 JAX's ``while_loop``/``scan``/``cond`` become Python loops and ``if``s; each
-convergence test is a host sync.  The numpy-only host modules of
-``shakti_tpu`` (params, fem/p1, mesh/{generate,msh_io,geometry},
-parallel/partition, native) are imported as they are; nothing here imports
-jax.
+convergence test is a host sync.  The host modules it needs from
+``shakti_tpu`` (params, fem/p1, mesh/{generate,msh_io,geometry}, data/interp,
+parallel/partition) are copies of their numpy paths: this package imports
+nothing of ``shakti_tpu``, nor jax, and loads no native host library.
 """
 
 __version__ = "0.1.0"

@@ -15,10 +15,11 @@ import dataclasses
 import numpy as np
 import torch
 
-from shakti_tpu.data.interp import GridInterpolator, subset_grid
-from shakti_tpu.mesh import geometry as geo
-from shakti_tpu.params import DEFAULT_PARAMS, PhysicalParams
+from shakti_tpu_torch.data.interp import GridInterpolator, subset_grid
+from shakti_tpu_torch.mesh import geometry as geo
 from shakti_tpu_torch.mesh.mesh import build_mesh, cell_geometry
+from shakti_tpu_torch.parallel.partition import rcb_order
+from shakti_tpu_torch.params import DEFAULT_PARAMS, PhysicalParams
 from shakti_tpu_torch.solve.newton import NewtonConfig, check_config, zero_lag
 from shakti_tpu_torch.solve.timestep import State, make_static_fields
 from shakti_tpu_torch.utils.backend import resolve_device
@@ -177,7 +178,6 @@ class ModelSetup:
                 "scalar ELL and block-CSR are ROADMAP, still to port, item 1")
         check_config(self.solver)
 
-        from shakti_tpu.parallel.partition import rcb_order
         perm = rcb_order(self.nodes)
         iperm = np.argsort(perm)
         nodes = self.nodes[perm]

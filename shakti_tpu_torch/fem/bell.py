@@ -7,8 +7,9 @@ slots point at their own row block and hold zeros).
 
 The element -> block fold is a deterministic gather (:func:`gather_plan`):
 CUDA's ``index_add_`` would sum shared slots with atomics, in an order that
-changes from run to run.  The matvec on CUDA tensors is the hand-written
-kernel in ops/spmv_cuda.py.
+changes from run to run.  The matvec on CUDA tensors reads only the
+structural nonzeros of ``vals`` through :func:`structural_view`
+(ops/spmv_cuda.py).
 """
 
 from __future__ import annotations
@@ -17,22 +18,17 @@ import numpy as np
 import torch
 
 from shakti_tpu_torch.fem.ops import fixed_sum
-from shakti_tpu_torch.ops.spmv_cuda import bell_matvec  # noqa: F401
+from shakti_tpu_torch.ops.spmv_cuda import W_MAX
 
 BLOCK = 128
 
 
 def build_block_ell(cells: np.ndarray, n_nodes: int, B: int = BLOCK):
     """Host-side: block sparsity + element->slot mapping (numpy; a copy of
-    shakti_tpu/fem/bell.py:build_block_ell, whose module imports jax).
+    shakti_tpu/fem/bell.py:build_block_ell, its numpy path).
 
     Returns (nbr (NB, KB) int32, slot_map (9*c,) flat positions into
     vals (NB, KB, B, B), diag_pos (n_nodes,), KB)."""
-    from shakti_tpu import native
-    if native.available():
-        nat = native.bell_build(np.asarray(cells, np.int32), n_nodes, B)
-        if nat is not None:
-            return nat
     NB = -(-n_nodes // B)
     c = cells.shape[0]
     rows = np.broadcast_to(cells[:, :, None], (c, 3, 3)).reshape(-1).astype(np.int64)
@@ -78,6 +74,44 @@ def gather_plan(keys: np.ndarray):
     rank = np.arange(keys.size) - np.repeat(start, counts)
     idx[np.repeat(np.arange(slots.size), counts), rank] = order
     return slots, idx
+
+
+def structural_view(nbr, fold_slots, n: int, B: int):
+    """Host-side scalar-ELL view of the operator's structural nonzeros.
+
+    ``fold_slots`` are the distinct flat positions of vals (NB, KB, B, B)
+    that the fold writes (:func:`gather_plan`).  Returns nz_pos (W, n)
+    int32, column-major: ``nz_pos[m, i]`` is the flat position of row i's
+    m-th structural entry, in (k, j) order (the dense product's summation
+    order without its zeros), padded with -1.  A position names its column
+    through ``nbr`` (ops/spmv_cuda.view_columns).  W is the largest row
+    count.  Raises when positions do not fit int32 or W exceeds the
+    kernel's maximum."""
+    nbr = np.asarray(nbr, np.int64)
+    NB, KB = nbr.shape
+    if NB * KB * B * B >= 2 ** 31:
+        raise ValueError(f"vals ({NB}, {KB}, {B}, {B}) has >= 2**31 entries: "
+                         "its positions do not fit the view's int32")
+    slots = np.unique(np.asarray(fold_slots, np.int64))
+    blk = slots // (B * B)
+    r, k = blk // KB, blk % KB
+    row = r * B + (slots // B) % B
+    col = nbr[r, k] * B + slots % B
+    if slots.size and max(row.max(), col.max()) >= n:
+        raise ValueError(f"fold slots address rows/columns beyond n = {n}")
+    # slots ascend in (r, k, i, j) order, so a stable sort by row keeps each
+    # row's entries in (k, j) order
+    order = np.argsort(row, kind="stable")
+    counts = np.bincount(row, minlength=n)
+    W = max(int(counts.max()) if n else 0, 1)
+    if W > W_MAX:
+        raise ValueError(f"a row has {W} structural entries; the kernel takes "
+                         f"at most {W_MAX}")
+    rank = np.arange(slots.size) - np.repeat(
+        np.concatenate([[0], np.cumsum(counts)[:-1]]), counts)
+    nz_pos = np.full((W, n), -1, np.int32)
+    nz_pos[rank, row[order]] = slots[order]
+    return nz_pos
 
 
 def plan_sum(values, slots, idx, size: int):

@@ -36,6 +36,9 @@ class Mesh:
     # deterministic fold of the 9c element entries (fem/bell.gather_plan)
     bell_fold_slots: torch.Tensor  # (U,) distinct flat vals positions
     bell_fold_idx: torch.Tensor    # (U, M) element entries per slot
+    # scalar-ELL view of the structural nonzeros (fem/bell.structural_view),
+    # what the matvec kernel reads
+    bell_nz_pos: torch.Tensor  # (W, n_nodes) int32 flat vals positions, -1 pad
 
     @property
     def n_nodes(self) -> int:
@@ -79,7 +82,7 @@ def mesh_from_arrays(a: dict, *, dtype, device) -> Mesh:
     """Mesh from host arrays: nodes, cells, area, grads, node_area,
     cell_valid, inc_map, bell_nbr, bell_map, bell_diag_pos, bell_B (the
     field names of both packages' Mesh).  Derives the deterministic fold
-    plan."""
+    plan and the structural view."""
     def f(k):
         return torch.as_tensor(np.array(a[k], np.float64), dtype=dtype,
                                device=device)
@@ -93,13 +96,16 @@ def mesh_from_arrays(a: dict, *, dtype, device) -> Mesh:
     fold_slots, fold_idx = bellm.gather_plan(a["bell_map"])
     if fold_slots.size and fold_slots[-1] >= NB * KB * B * B:
         raise ValueError("bell_map addresses slots outside (NB, KB, B, B)")
+    n = np.asarray(a["nodes"]).shape[0]
+    nz_pos = bellm.structural_view(nbr, fold_slots, n, B)
     return Mesh(
         nodes=f("nodes"), cells=i(a["cells"]), area=f("area"),
         grads=f("grads"), node_area=f("node_area"),
         cell_valid=f("cell_valid"), inc_map=i(a["inc_map"]),
         bell_nbr=i(nbr), bell_map=i(a["bell_map"]),
         bell_diag_pos=i(a["bell_diag_pos"]), bell_B=B,
-        bell_fold_slots=i(fold_slots), bell_fold_idx=i(fold_idx))
+        bell_fold_slots=i(fold_slots), bell_fold_idx=i(fold_idx),
+        bell_nz_pos=torch.as_tensor(nz_pos, device=device))
 
 
 def build_mesh(nodes: np.ndarray, cells: np.ndarray, *, dtype=torch.float64,

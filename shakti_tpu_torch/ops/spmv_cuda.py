@@ -1,11 +1,24 @@
-"""Block-ELL SpMV: the CUDA kernel csrc/bell_spmv.cu and its plain twin.
+"""The block-ELL operator matvec: the CUDA kernel csrc/bell_spmv.cu and its
+plain twins.
 
-Replaces shakti_tpu/ops/spmv_pallas.py:bell_matvec_pallas (the TPU's
-Pallas kernel).  :func:`bell_matvec` launches the kernel on CUDA tensors and
-raises if it cannot; on CPU tensors it computes :func:`bell_matvec_plain`,
-the same function as shakti_tpu/fem/bell.py:bell_matvec (row-block gather
-plus one batched contraction).  The kernel is bound by memory bandwidth: it
-streams ``vals`` once per call (see the note in the source).
+Replaces shakti_tpu/ops/spmv_pallas.py:bell_matvec_pallas (the TPU's Pallas
+kernel) together with the operator epilogue around it
+(shakti_tpu/physics/residual.py:operator_from_values, and the diagonal
+floor ``matvec0(x) + extra * x`` of shakti_tpu/solve/newton.py):
+
+    xm = where(d, 0, x);  y0 = where(d, x, A xm);  y = y0 + extra * x
+
+:func:`bell_operator_fn` checks an operator once and returns its matvec.
+On CUDA tensors each call is one launch of the kernel (or an error), which
+reads only the operator's structural nonzeros through the mesh's scalar-ELL
+view (``mesh.bell_nz_pos``, fem/bell.structural_view, whose positions name
+their columns through ``mesh.bell_nbr``: :func:`view_columns`); see the note
+in the source.  On CPU tensors it computes
+:func:`bell_operator_plain`, the dense block-ELL product of
+shakti_tpu/fem/bell.py:bell_matvec with the epilogue composed in PyTorch.
+:func:`bell_operator_structural` is the kernel's mirror over the view, the
+same operations in the same order; tests and chip_smoke.py compare the
+kernel with it bit for bit.
 
 Build: at first use, ``nvcc -gencode arch=compute_90a,code=sm_90a`` compiles
 the source into ``build/shakti_tpu_torch/`` at the repository root (an
@@ -28,8 +41,14 @@ from pathlib import Path
 
 import torch
 
+from shakti_tpu_torch.fem.ops import fixed_sum
+
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "bell_spmv.cu"
 _ROOT = Path(__file__).resolve().parents[2]
+
+# the kernel's compile-time maximum of structural entries per row (kWMax in
+# the source, which refuses a launch with more)
+W_MAX = 16
 
 
 def _build_dir() -> Path:
@@ -88,66 +107,171 @@ def build() -> dict:
     lib = ctypes.CDLL(str(path))
     p, i = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.bell_spmv_f32, lib.bell_spmv_f64):
-        fn.argtypes = [p, p, p, p, i, i, i, p]
+        fn.argtypes = [p, p, p, i, i, i, i, p, p, p, p, i, p]
         fn.restype = i
     log = log_path.read_text() if log_path.exists() else ""
     return {"lib": lib, "path": str(path), "seconds": seconds, "log": log}
 
 
-def _check(vals, nbr, x, n: int):
-    if vals.dim() != 4 or vals.shape[2] != vals.shape[3]:
-        raise ValueError(f"vals must be (NB, KB, B, B), got {tuple(vals.shape)}")
-    NB, KB, B, _ = vals.shape
-    if tuple(nbr.shape) != (NB, KB) or nbr.dtype != torch.int64:
-        raise ValueError(f"nbr must be int64 ({NB}, {KB}), got "
-                         f"{nbr.dtype} {tuple(nbr.shape)}")
-    if x.dim() != 1 or x.shape[0] != n or not 0 < n <= NB * B:
-        raise ValueError(f"x must be ({n},) with 0 < n <= NB*B = {NB * B}, "
-                         f"got {tuple(x.shape)}")
-    if vals.dtype not in (torch.float32, torch.float64) or x.dtype != vals.dtype:
-        raise ValueError(f"vals/x must share float32 or float64, got "
-                         f"{vals.dtype}/{x.dtype}")
-    if not (vals.device == nbr.device == x.device):
-        raise ValueError(f"vals/nbr/x on different devices: {vals.device}, "
-                         f"{nbr.device}, {x.device}")
-    if B % 32:
-        raise ValueError(f"block edge B={B} must be a multiple of 32 "
-                         "(one warp strides a block row)")
+def _check(vals, mesh, dirichlet, extra):
+    """Shapes, dtypes, devices and layout of one operator (run once per
+    operator, not per matvec)."""
+    NB, KB = mesh.bell_nbr.shape
+    B, n = mesh.bell_B, mesh.n_nodes
+    if tuple(vals.shape) != (NB, KB, B, B):
+        raise ValueError(f"vals must be (NB, KB, B, B) = {(NB, KB, B, B)}, "
+                         f"got {tuple(vals.shape)}")
+    if vals.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"vals must be float32 or float64, got {vals.dtype}")
+    pos, nbr = mesh.bell_nz_pos, mesh.bell_nbr
+    if (pos.dtype != torch.int32 or pos.dim() != 2 or pos.shape[1] != n
+            or not 1 <= pos.shape[0] <= W_MAX):
+        raise ValueError(f"the structural view must be int32 (W, {n}) with "
+                         f"1 <= W <= {W_MAX}, got {pos.dtype} "
+                         f"{tuple(pos.shape)}")
+    if nbr.dtype != torch.int64:
+        raise ValueError(f"nbr must be int64, got {nbr.dtype}")
+    if dirichlet is not None and (dirichlet.dtype != torch.bool
+                                  or tuple(dirichlet.shape) != (n,)):
+        raise ValueError(f"dirichlet must be bool ({n},), got "
+                         f"{dirichlet.dtype} {tuple(dirichlet.shape)}")
+    if extra is not None and (extra.dtype != vals.dtype
+                              or tuple(extra.shape) != (n,)):
+        raise ValueError(f"extra must be {vals.dtype} ({n},), got "
+                         f"{extra.dtype} {tuple(extra.shape)}")
+    tensors = [t for t in (vals, pos, nbr, dirichlet, extra) if t is not None]
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError("vals, the structural view, dirichlet and extra on "
+                         f"different devices: {[t.device for t in tensors]}")
+    if vals.device.type == "cuda" and not all(t.is_contiguous()
+                                              for t in tensors):
+        raise ValueError("vals, the structural view, dirichlet and extra must "
+                         "be contiguous")
+
+
+def _compose(product, x, dirichlet, extra):
+    """The operator epilogue around y = A xm, as PyTorch ops."""
+    xm = x if dirichlet is None else torch.where(dirichlet, 0.0, x)
+    y = product(xm)
+    if dirichlet is not None:
+        y = torch.where(dirichlet, x, y)
+    return y if extra is None else y + extra * x
 
 
 def bell_matvec_plain(vals, nbr, x, n: int):
-    """y = A x in plain PyTorch: row-block gather + batched contraction."""
+    """y = A x in plain PyTorch: row-block gather + batched contraction
+    (shakti_tpu/fem/bell.py:bell_matvec)."""
     NB, KB, B, _ = vals.shape
     xb = torch.nn.functional.pad(x, (0, NB * B - n)).reshape(NB, B)
     y = torch.einsum("nkij,nkj->ni", vals, xb[nbr])
     return y.reshape(-1)[:n]
 
 
-def bell_matvec(vals, nbr, x, n: int):
-    """y = A x with A in block-ELL form (vals (NB, KB, B, B), nbr (NB, KB)
-    int64, x (n,)).  CUDA tensors: the csrc/bell_spmv.cu kernel (or an
-    error); CPU tensors: :func:`bell_matvec_plain`."""
-    _check(vals, nbr, x, n)
-    if x.device.type == "cpu":
-        return bell_matvec_plain(vals, nbr, x, n)
-    if x.device.type != "cuda":
-        raise ValueError(f"bell_matvec: unsupported device {x.device}")
-    if not (vals.is_contiguous() and nbr.is_contiguous() and x.is_contiguous()):
-        raise ValueError("bell_matvec: vals, nbr and x must be contiguous")
-    lib = build()["lib"]
-    NB, KB, B, _ = vals.shape
-    fn = lib.bell_spmv_f32 if x.dtype == torch.float32 else lib.bell_spmv_f64
-    y = torch.empty(n, dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(vals.data_ptr(), nbr.data_ptr(), x.data_ptr(), y.data_ptr(),
-                 KB, B, n, stream)
-    if err != 0:
-        raise RuntimeError(f"bell_spmv launch failed: cudaError {err}")
-    bell_matvec.launches += 1
-    return y
+def bell_operator_plain(vals, mesh, x, dirichlet=None, extra=None):
+    """The operator in plain PyTorch over the dense blocks: what the CPU
+    path computes."""
+    return _compose(
+        lambda xm: bell_matvec_plain(vals, mesh.bell_nbr, xm, mesh.n_nodes),
+        x, dirichlet, extra)
 
 
-# kernel launches since the last reset (chip_smoke.py reads it to show the
-# main path went through the kernel)
-bell_matvec.launches = 0
+def view_columns(nz_pos, nbr, B: int):
+    """Column node id of each entry of the view: the flat position
+    ((r KB + k) B + i) B + j names column ``nbr[r, k] * B + j`` (what the
+    kernel works out); padding: the row itself."""
+    pos = nz_pos.long()
+    p = pos.clamp_min(0)
+    col = nbr.reshape(-1)[p // (B * B)] * B + p % B
+    rows = torch.arange(pos.shape[1], device=pos.device).expand_as(pos)
+    return torch.where(pos >= 0, col, rows)
+
+
+def structural_matvec_plain(vals, nz_pos, nbr, x):
+    """y = A x over the structural view: gather, multiply, and sum the W
+    terms of each row in order from the first (the kernel's order; a
+    padding term is 0 * 0)."""
+    valid = nz_pos >= 0
+    v = torch.where(valid, vals.reshape(-1)[nz_pos.long().clamp_min(0)], 0.0)
+    xc = torch.where(valid, x[view_columns(nz_pos, nbr, vals.shape[-1])], 0.0)
+    return fixed_sum(v * xc, 0)
+
+
+def bell_operator_structural(vals, mesh, x, dirichlet=None, extra=None):
+    """The kernel's plain mirror: the operator over the structural view."""
+    return _compose(
+        lambda xm: structural_matvec_plain(vals, mesh.bell_nz_pos,
+                                           mesh.bell_nbr, xm),
+        x, dirichlet, extra)
+
+
+# kernel launches since the last reset: _Launcher adds one per launch
+# (chip_smoke.py reads it to show the main path went through the kernel)
+launches = 0
+
+
+class _Launcher:
+    """One checked operator on the card: each call is a ``torch.empty`` and
+    one kernel launch.  Holds the tensors whose pointers it passes."""
+
+    def __init__(self, vals, mesh, dirichlet, extra):
+        if vals.device.type != "cuda":
+            raise ValueError(f"bell_operator: unsupported device {vals.device}")
+        if mesh.bell_B & (mesh.bell_B - 1):
+            raise ValueError(f"the kernel takes a block edge B that is a power "
+                             f"of two, got {mesh.bell_B}")
+        lib = build()["lib"]
+        self.fn = (lib.bell_spmv_f32 if vals.dtype == torch.float32
+                   else lib.bell_spmv_f64)
+        pos, nbr = mesh.bell_nz_pos, mesh.bell_nbr
+        self.keep = (vals, pos, nbr, dirichlet, extra)
+        self.n = mesh.n_nodes
+        self.dtype, self.device = vals.dtype, vals.device
+        self.index = vals.device.index
+        self.args = (vals.data_ptr(), pos.data_ptr(), nbr.data_ptr(),
+                     nbr.shape[1], mesh.bell_B, pos.shape[0], self.n)
+        self.epilogue = (None if dirichlet is None else dirichlet.data_ptr(),
+                         None if extra is None else extra.data_ptr())
+
+    def __call__(self, x):
+        global launches
+        _check_x(x, self.n, self.dtype, self.device)
+        y = torch.empty_like(x)
+        # the current stream's handle, without building a torch.cuda.Stream
+        stream = torch._C._cuda_getCurrentRawStream(self.index)
+        err = self.fn(*self.args, x.data_ptr(), *self.epilogue, y.data_ptr(),
+                      self.index, stream)
+        if err != 0:
+            raise RuntimeError(f"bell_spmv launch failed: cudaError {err}")
+        launches += 1
+        return y
+
+
+def _check_x(x, n, dtype, device):
+    if (x.shape != (n,) or x.dtype != dtype or x.device != device
+            or not x.is_contiguous()):
+        raise ValueError(f"x must be a contiguous {dtype} ({n},) on {device}, "
+                         f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+
+
+def bell_operator_fn(vals, mesh, dirichlet=None, extra=None):
+    """The operator's matvec ``x -> y`` for the block-ELL values ``vals``
+    (NB, KB, B, B) on ``mesh``, with optional Dirichlet mask (bool (n,)) and
+    diagonal increment ``extra`` (n,).  Checked here, once (each call checks
+    only x's shape, type, device and layout).  CUDA tensors:
+    the csrc/bell_spmv.cu kernel (or an error); CPU tensors:
+    :func:`bell_operator_plain`."""
+    _check(vals, mesh, dirichlet, extra)
+    if vals.device.type == "cpu":
+        return functools.partial(_cpu_operator, vals, mesh,
+                                 dirichlet=dirichlet, extra=extra)
+    return _Launcher(vals, mesh, dirichlet, extra)
+
+
+def _cpu_operator(vals, mesh, x, dirichlet, extra):
+    _check_x(x, mesh.n_nodes, vals.dtype, vals.device)
+    return bell_operator_plain(vals, mesh, x, dirichlet, extra)
+
+
+def bell_operator(vals, mesh, x, dirichlet=None, extra=None):
+    """One matvec of the operator (:func:`bell_operator_fn` applied to x)."""
+    return bell_operator_fn(vals, mesh, dirichlet, extra)(x)

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from shakti_tpu.params import PhysicalParams
+from shakti_tpu_torch.params import PhysicalParams
 
 
 def head(N, z_b, z_s, p: PhysicalParams):

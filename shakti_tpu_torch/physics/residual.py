@@ -20,11 +20,12 @@ from typing import Any
 import torch
 import torch.autograd.forward_ad as fwAD
 
-from shakti_tpu.fem.p1 import quadrature
-from shakti_tpu.params import PhysicalParams
 from shakti_tpu_torch.fem import bell as bellm
 from shakti_tpu_torch.fem import ops
 from shakti_tpu_torch.fem.ops import fixed_sum
+from shakti_tpu_torch.fem.p1 import quadrature
+from shakti_tpu_torch.ops import spmv_cuda as spmv
+from shakti_tpu_torch.params import PhysicalParams
 from shakti_tpu_torch.physics import constitutive as law
 
 
@@ -163,14 +164,10 @@ def operator_diag_from_values(vals, mesh):
     return bellm.bell_diag(vals, mesh.bell_diag_pos)
 
 
-def operator_from_values(vals, mesh, dirichlet):
-    """Matvec of A = -J with symmetric Dirichlet elimination: constrained
-    inputs are zeroed and constrained rows act as the identity."""
-    n = mesh.n_nodes
-
-    def matvec(x):
-        xf = torch.where(dirichlet, 0.0, x)
-        y = bellm.bell_matvec(vals, mesh.bell_nbr, xf, n)
-        return torch.where(dirichlet, x, y)
-
-    return matvec
+def operator_from_values(vals, mesh, dirichlet, extra=None):
+    """Matvec of A = -J with symmetric Dirichlet elimination (constrained
+    inputs are zeroed and constrained rows act as the identity), plus
+    ``extra * x`` when ``extra`` is given (the diagonal floor).  Checked
+    once here; on the card each matvec is one kernel launch
+    (ops/spmv_cuda.py)."""
+    return spmv.bell_operator_fn(vals, mesh, dirichlet, extra)

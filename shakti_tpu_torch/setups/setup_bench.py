@@ -13,8 +13,8 @@ import os
 
 import numpy as np
 
-from shakti_tpu.mesh.msh_io import read_msh
 from shakti_tpu_torch.api.model import ModelSetup
+from shakti_tpu_torch.mesh.msh_io import read_msh
 from shakti_tpu_torch.solve.newton import NewtonConfig
 
 ASSETS = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(

@@ -11,9 +11,9 @@ import os
 import numpy as np
 import torch
 
-from shakti_tpu.mesh.generate import rectangle_mesh
-from shakti_tpu.params import DEFAULT_PARAMS as P
 from shakti_tpu_torch.api.model import ModelSetup
+from shakti_tpu_torch.mesh.generate import rectangle_mesh
+from shakti_tpu_torch.params import DEFAULT_PARAMS as P
 from shakti_tpu_torch.physics.constitutive import background_potential
 
 

@@ -9,8 +9,8 @@ import os
 
 import numpy as np
 
-from shakti_tpu.mesh.generate import rectangle_mesh
 from shakti_tpu_torch.api.model import ModelSetup
+from shakti_tpu_torch.mesh.generate import rectangle_mesh
 
 
 def initialize(nx=60, ny=60, lx=10e3, ly=10e3, *,

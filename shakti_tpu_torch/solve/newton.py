@@ -188,13 +188,9 @@ def newton_solve(N_init, pre, mesh, dirichlet, dirichlet_value, params,
             vals = res.fold_operator_values(
                 res.element_jacobian(N, pre, mesh, params), mesh)
             a_diag = res.operator_diag_from_values(vals, mesh)
-        matvec0 = res.operator_from_values(vals, mesh, dirichlet)
         # regularize degenerate (clamped-sheet) rows: see diag_floor_rel
         extra = diag_floor_extra(a_diag, dirichlet, mesh, cfg.diag_floor_rel)
-
-        def matvec(x):
-            return matvec0(x) + extra * x
-
+        matvec = res.operator_from_values(vals, mesh, dirichlet, extra)
         a_diag = a_diag + extra
         if lag_on:
             minv = (pc.two_level_from_inverse(A_inv, a_diag, dirichlet,

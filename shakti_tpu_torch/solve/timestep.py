@@ -23,9 +23,9 @@ from typing import Any
 import numpy as np
 import torch
 
-from shakti_tpu.params import PhysicalParams
 from shakti_tpu_torch.fem import ops
 from shakti_tpu_torch.fem.ops import fixed_sum
+from shakti_tpu_torch.params import PhysicalParams
 from shakti_tpu_torch.physics import constitutive as law
 from shakti_tpu_torch.physics import residual as res
 from shakti_tpu_torch.solve.newton import NewtonConfig, check_config, newton_solve

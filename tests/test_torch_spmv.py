@@ -1,8 +1,10 @@
-"""The block-ELL SpMV wrapper (shakti_tpu_torch/ops/spmv_cuda.py) on the CPU,
-where it computes its plain version: against shakti_tpu's XLA block-ELL
+"""The block-ELL operator wrapper (shakti_tpu_torch/ops/spmv_cuda.py) on the
+CPU, where it computes its plain version: against shakti_tpu's XLA block-ELL
 matvec (f64, 1e-13) and the Pallas kernel in interpret mode (f32, as
 tests/test_pallas.py:27 checks it).  The CUDA kernel itself is checked
-against the plain version on the card by chip_smoke.py."""
+against its plain twins on the card by chip_smoke.py."""
+
+import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -13,72 +15,82 @@ from shakti_tpu.fem import bell as jbell
 from shakti_tpu.mesh.generate import rectangle_mesh
 from shakti_tpu.mesh.mesh import build_mesh as jbuild
 from shakti_tpu.ops.spmv_pallas import bell_matvec_pallas
+from shakti_tpu_torch.mesh.mesh import build_mesh as tbuild
 from shakti_tpu_torch.ops import spmv_cuda
-from shakti_tpu_torch.ops.spmv_cuda import bell_matvec, bell_matvec_plain
+from shakti_tpu_torch.ops.spmv_cuda import bell_operator, bell_operator_plain
 
 
 def _operator(nx, ny, B, dtype, seed=0):
+    """Seeded folded values on a jittered rectangle, with the JAX and the
+    port mesh of the same nodes."""
     nodes, cells = rectangle_mesh(nx, ny, 1.0, 1.0, jitter=0.2, seed=8)
     n = nodes.shape[0]
     m = jbuild(nodes, cells, dtype=jnp.float64, operator="bell", bell_block=B)
+    tm = tbuild(nodes, cells, dtype=torch.float64, bell_block=B)
     NB, KB = m.bell_nbr.shape
     rng = np.random.default_rng(seed)
     J = jnp.asarray(rng.normal(size=(m.n_cells, 3, 3)), dtype)
     vals = jbell.bell_from_elements(J, m.bell_map, NB, KB, B)
     x = jnp.asarray(rng.normal(size=n), dtype)
-    return vals, m.bell_nbr, x, n
+    return vals, m.bell_nbr, x, n, tm
 
 
-def _torch(vals, nbr, x):
-    return (torch.as_tensor(np.array(vals)),
-            torch.as_tensor(np.array(nbr, np.int64)), torch.as_tensor(np.array(x)))
+def _torch(vals, x):
+    return torch.as_tensor(np.array(vals)), torch.as_tensor(np.array(x))
 
 
 # (nx, ny, B): n = (nx+1)(ny+1) is ragged against B in every case
 @pytest.mark.parametrize("nx,ny,B", [(12, 12, 128), (9, 7, 32), (20, 14, 64)])
 def test_plain_matches_jax_bell_f64(nx, ny, B):
-    vals, nbr, x, n = _operator(nx, ny, B, jnp.float64)
+    vals, nbr, x, n, tm = _operator(nx, ny, B, jnp.float64)
     assert n % B != 0
     ref = np.asarray(jbell.bell_matvec(vals, nbr, x, n))
-    got = bell_matvec(*_torch(vals, nbr, x), n)
+    tv, tx = _torch(vals, x)
+    got = bell_operator(tv, tm, tx)
     assert got.shape == (n,) and got.dtype == torch.float64
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-13,
                                atol=1e-13 * np.abs(ref).max())
-    assert torch.equal(got, bell_matvec_plain(*_torch(vals, nbr, x), n))
+    assert torch.equal(got, bell_operator_plain(tv, tm, tx))
 
 
 def test_plain_matches_pallas_interpret_f32():
-    vals, nbr, x, n = _operator(12, 12, 128, jnp.float32)
+    vals, nbr, x, n, tm = _operator(12, 12, 128, jnp.float32)
     ref = np.asarray(bell_matvec_pallas(vals, nbr, x, n, interpret=True))
-    got = bell_matvec(*_torch(vals, nbr, x), n)
+    tv, tx = _torch(vals, x)
+    got = bell_operator(tv, tm, tx)
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), ref, rtol=2e-6, atol=1e-6)
 
 
 def test_cpu_tensors_do_not_count_launches():
-    vals, nbr, x, n = _operator(9, 7, 32, jnp.float64)
-    before = spmv_cuda.bell_matvec.launches
+    vals, _, x, _, tm = _operator(9, 7, 32, jnp.float64)
+    tv, tx = _torch(vals, x)
+    before = spmv_cuda.launches
+    matvec = spmv_cuda.bell_operator_fn(tv, tm)
     for _ in range(3):
-        bell_matvec(*_torch(vals, nbr, x), n)
-    assert spmv_cuda.bell_matvec.launches == before == 0
+        matvec(tx)
+    assert spmv_cuda.launches == before == 0
 
 
-@pytest.mark.parametrize("bad", ["dtype", "nbr_dtype", "n", "B", "mixed"])
+@pytest.mark.parametrize("bad", ["dtype", "nbr_dtype", "view_dtype", "n", "B",
+                                 "mixed"])
 def test_wrapper_rejects_malformed_input(bad):
-    vals, nbr, x = _torch(*_operator(9, 7, 32, jnp.float64)[:3])
-    n = x.shape[0]
+    vals, _, x, _, tm = _operator(9, 7, 32, jnp.float64)
+    vals, x = _torch(vals, x)
     if bad == "dtype":
         x = x.float()
     elif bad == "nbr_dtype":
-        nbr = nbr.int()
+        tm = dataclasses.replace(tm, bell_nbr=tm.bell_nbr.int())
+    elif bad == "view_dtype":
+        tm = dataclasses.replace(tm, bell_nz_pos=tm.bell_nz_pos.long())
     elif bad == "n":
-        n = vals.shape[0] * vals.shape[2] + 1
+        x = x[:-1]
     elif bad == "B":
-        vals, x, n = vals[:, :, :16, :16].contiguous(), x[:40], 40
+        vals = vals[:, :, :16, :16].contiguous()
     else:
         vals = vals.float()
     with pytest.raises(ValueError):
-        bell_matvec(vals, nbr, x, n)
+        bell_operator(vals, tm, x)
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
