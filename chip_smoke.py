@@ -1,12 +1,14 @@
 """Smoke test of the PyTorch/CUDA port (shakti_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root; needs one GPU
+    python3 chip_smoke.py --phases kernel,scale   # a subset, for debugging
 
 Phases (any failure raises: exit code != 0 and no result line):
   1. the card: torch.cuda must be available; prints its name and
      nvidia-smi's name/power limit;
-  2. build: compiles csrc/bell_spmv.cu with nvcc for sm_90a;
-  3. kernel vs plain: the block-ELL operator kernel (the structural
+  2. build: compiles csrc/bell_spmv.cu and csrc/ell_spmv.cu with nvcc for
+     sm_90a, one nvcc per source, started together;
+  3. bell_spmv vs plain: the block-ELL operator kernel (the structural
      nonzeros of vals, with and without the fused Dirichlet/diagonal-floor
      epilogue) on the bench operator (Cook_E2 mesh, NB 96, KB 11, B 128,
      n 12,270, W 10; seeded element blocks folded as the main path folds
@@ -36,11 +38,37 @@ Phases (any failure raises: exit code != 0 and no result line):
   6. profile: one more simulated day, timed, then under torch.profiler
      (device busy share, launches and host syncs per step, device time by
      op, the kernel's launches and device time on the path), to show where
-     a steady step's time goes.
-The line before the last is a JSON object with the kernel's numbers; the
+     a steady step's time goes;
+  7. ell_spmv vs plain: the scalar-ELL/block-CSR operator kernel at the
+     bench mesh in ELL and in BCSR (B 32), at phase 8's 1,002,001-node BCSR
+     mesh and a ragged n = 169 case, float32 and float64, with and without
+     the epilogue: bitwise equal to its mirror and between two launches,
+     within phase 3's tolerances of the plain twin; device time per launch
+     (profiler, median of 50), the bytes bound and a torch sparse CSR mv of
+     the same entries;
+  8. large mesh: scripts/scale_bench.py's configuration on the port
+     (rectangle_mesh(1000, 1000, 2e6, 2e6, jitter 0.25): 1,002,001 nodes,
+     2M triangles, f32, two-level, no lag), "auto" -> block-CSR B 32,
+     coarse block 1024, 24 steps through api/run.solve with nt_save 12:
+     every step converged, fields finite, ell_spmv launched and no plain
+     twin called; ms/step of the second window, counts, peak memory and
+     the host time of freeze;
+  9. formats agree: the bench model in float64 for 4 hourly steps under
+     bell, ell, bcsr (B 32) and cells: all converge, final N and b in user
+     order within 1e-7 of scale of bell's; Newton and CG counts per format;
+ 10. resume: phase 5's uninterrupted run against 25 steps then --resume
+     through cli.main to step 48: N, b, q and the four histories equal;
+ 11. bootstrap: setup_cooke2 (the committed mesh, SHAKTI_REFERENCE_BINIT=1)
+     for 3 days: 24 float64 bootstrap steps marched on the card (every
+     bootstrap tensor float64 on cuda), then float32; all 72 converge;
+ 12. BiCGStab: the bench model in float64 for 4 steps with
+     krylov="bicgstab": converges, N within 1e-7 of scale of phase 9's cg.
+The line before the last is a JSON object with the kernels' numbers; the
 last line is {"ok": true, "device": {...}}.
 """
 
+import argparse
+import concurrent.futures
 import importlib.util
 import json
 import os
@@ -99,34 +127,80 @@ def median_ms(fn, reps=50, warmup=5) -> float:
     return float(np.median([a.elapsed_time(b) for a, b in pairs]))
 
 
+def queued_ms(fn, reps=50, between=None) -> float:
+    """Device time of one fn() call without the profiler: ``reps`` calls
+    queued behind a device-side sleep, so that the card runs them back to
+    back, timed between two CUDA events (the gaps between kernels count).
+    With ``between``: the time of between() + fn() less that of between()
+    alone, queued the same way.  The sleep doubles until the host has
+    queued every call before the card reaches the first event."""
+    def run(body):
+        cycles = 50_000_000
+        for _ in range(6):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            torch.cuda._sleep(cycles)
+            a.record()
+            for _ in range(reps):
+                body()
+            b.record()
+            late = a.query()        # the card reached `a` before all were queued
+            torch.cuda.synchronize()
+            if not late:
+                return a.elapsed_time(b) / reps
+            cycles *= 2
+        raise RuntimeError("queued_ms: the host could not queue the calls "
+                           "ahead of the card")
+    if between is None:
+        return run(fn)
+    return run(lambda: (between(), fn())) - run(between)
+
+
 def device_ms(fn, match=None, reps=50, warmup=5, between=None) -> float:
     """Device time from torch.profiler (CUPTI).  With ``match``: the median
     over ``reps`` calls of the one kernel per call whose name contains it
     (``between`` runs untimed before each call).  Without: all device time
-    of ``reps`` calls over ``reps`` (a call may launch several kernels)."""
+    of ``reps`` calls over ``reps`` (a call may launch several kernels).
+    CUPTI drops records at random, at times a whole session's (seen on an
+    H100 with torch 2.11): with ``match`` the records of up to eight
+    sessions are pooled until they hold ``reps``; without, the session
+    that kept the most records of three (up to eight while none kept any)
+    is taken.  If the profiler still kept too few, the time comes from
+    :func:`queued_ms` and the log says so."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     if between is not None and match is None:
         raise ValueError("device_ms: `between` needs `match`")
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            if between is not None:
-                between()
-            fn()
+    pool, best = [], []
+    for attempt in range(8):
         torch.cuda.synchronize()
-    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not evs:
-        raise RuntimeError("torch.profiler recorded no device activity")
-    if match is None:
-        return sum(e.time_range.elapsed_us() for e in evs) / reps / 1e3
-    us = [e.time_range.elapsed_us() for e in evs if match in e.name]
-    if len(us) != reps:
-        raise RuntimeError(f"profiler: {len(us)} {match!r} kernels for {reps}"
-                           f" calls (kernels: {sorted({e.name for e in evs})})")
-    return float(np.median(us)) / 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                if between is not None:
+                    between()
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if match is None:
+            if len(evs) > len(best):
+                best = [e.time_range.elapsed_us() for e in evs]
+            if best and attempt >= 2:
+                return sum(best) / reps / 1e3
+            continue
+        us = [e.time_range.elapsed_us() for e in evs if match in e.name]
+        if len(us) != reps:
+            log(f"  profiler kept {len(us)} of {reps} {match!r} records")
+        pool += us
+        if len(pool) >= reps:
+            return float(np.median(pool)) / 1e3
+    ms = queued_ms(fn, reps, between)
+    log(f"  profiler kept {len(pool) or len(best)} records in eight sessions "
+        f"of {reps} calls ({match!r}): {ms:.5f} ms from CUDA events around "
+        f"{reps} calls queued behind a sleep")
+    return ms
 
 
 def check_close(name, got, ref, rtol, atol_rel):
@@ -161,38 +235,45 @@ def operator_inputs(mesh, dirichlet, rng):
             (("J", J), ("x", x), ("extra", extra))}
 
 
-def check_operator(tag, vals, mesh, x, dirichlet, extra, rtol, atol_rel):
-    """The kernel against its mirror twin (bitwise), the dense plain twin
-    (tolerance) and itself (bitwise); returns the error against the dense
+def wrappers(kernel):
+    """(operator_fn, plain twin, mirror) of kernel 'bell_spmv' or
+    'ell_spmv' (ops/spmv_cuda.py)."""
+    from shakti_tpu_torch.ops import spmv_cuda as sp
+    if kernel == "bell_spmv":
+        return (sp.bell_operator_fn, sp.bell_operator_plain,
+                sp.bell_operator_structural)
+    return sp.ell_operator_fn, sp.ell_operator_plain, sp.ell_operator_structural
+
+
+def check_operator(tag, vals, mesh, x, dirichlet, extra, rtol, atol_rel,
+                   kernel="bell_spmv"):
+    """The kernel against its mirror twin (bitwise), the plain twin
+    (tolerance) and itself (bitwise); returns the error against the plain
     twin."""
-    from shakti_tpu_torch.ops.spmv_cuda import (bell_operator_fn,
-                                                bell_operator_plain,
-                                                bell_operator_structural)
-    op = bell_operator_fn(vals, mesh, dirichlet, extra)
+    operator_fn, plain, mirror = wrappers(kernel)
+    op = operator_fn(vals, mesh, dirichlet, extra)
     y = op(x)
-    mirror = bell_operator_structural(vals, mesh, x, dirichlet, extra)
-    dense = bell_operator_plain(vals, mesh, x, dirichlet, extra)
+    ym = mirror(vals, mesh, x, dirichlet, extra)
+    dense = plain(vals, mesh, x, dirichlet, extra)
     torch.cuda.synchronize()
-    if not bitwise_equal(y, mirror):
-        bad = int((y != mirror).sum())
-        raise RuntimeError(f"bell_spmv {tag}: differs from its mirror twin in "
-                           f"{bad} rows (max {float((y - mirror).abs().max())})")
+    if not bitwise_equal(y, ym):
+        bad = int((y != ym).sum())
+        raise RuntimeError(f"{kernel} {tag}: differs from its mirror twin in "
+                           f"{bad} rows (max {float((y - ym).abs().max())})")
     err = check_close(tag, y, dense, rtol, atol_rel)
     if not bitwise_equal(op(x), y):
-        raise RuntimeError(f"bell_spmv {tag}: two launches differ")
+        raise RuntimeError(f"{kernel} {tag}: two launches differ")
     return err
 
 
-def bound(mesh, dtype, epilogue: bool):
+def bound(nnz, n, dtype, epilogue: bool, index_bytes: int, row_bytes: int):
     """(ms, 'bytes' or 'operations'): the least time of one operator matvec
     on this card's published peaks, from what this run's operator needs:
-    each structural nonzero's value and one int32 index, one int32 length
-    per row, x and y once, plus the mask and extra with the epilogue; 2
-    flops a nonzero (3 per row more with the epilogue)."""
+    each structural nonzero's value and ``index_bytes`` of indices,
+    ``row_bytes`` per row, x and y once, plus the mask and extra with the
+    epilogue; 2 flops a nonzero (3 per row more with the epilogue)."""
     es = torch.tensor([], dtype=dtype).element_size()
-    n = mesh.n_nodes
-    nnz = int((mesh.bell_nz_pos >= 0).sum())
-    nbytes = nnz * (es + 4) + 4 * n + 2 * n * es
+    nbytes = nnz * (es + index_bytes) + row_bytes * n + 2 * n * es
     if epilogue:
         nbytes += n + n * es
     t_bytes = nbytes / HBM_BYTES_PER_S
@@ -200,14 +281,23 @@ def bound(mesh, dtype, epilogue: bool):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def csr_of(vals, mesh):
+def bell_bound(mesh, dtype, epilogue: bool):
+    """bell_spmv: one int32 position per nonzero, one int32 length a row."""
+    nnz = int((mesh.bell_nz_pos >= 0).sum())
+    return bound(nnz, mesh.n_nodes, dtype, epilogue, 4, 4)
+
+
+def ell_bound(mesh, dtype, epilogue: bool):
+    """ell_spmv: an int32 position and an int32 column per nonzero."""
+    nnz = int((mesh.nz_pos >= 0).sum())
+    return bound(nnz, mesh.n_nodes, dtype, epilogue, 8, 0)
+
+
+def csr_of(vals, pos, col, n):
     """The same structural entries of the same vals as a torch sparse CSR
     matrix (int32 indices, columns ascending in each row): the library
-    yardstick, never used by the port."""
-    from shakti_tpu_torch.ops.spmv_cuda import view_columns
-    n = mesh.n_nodes
-    pos = mesh.bell_nz_pos.long()
-    col = view_columns(pos, mesh.bell_nbr, mesh.bell_B)
+    yardstick, never used by the port.  ``pos``/``col``: a (W, n) view."""
+    pos, col = pos.long(), col.long()
     valid = pos >= 0
     rows = torch.arange(n, device=pos.device).expand_as(pos)[valid]
     cols, p = col[valid], pos[valid]
@@ -219,10 +309,26 @@ def csr_of(vals, mesh):
                                    (n, n), check_invariants=True)
 
 
+def library_times(r, tag, vals, pos, col, n, x, ref, dtype, atol_rel):
+    """One torch sparse CSR mv of the same entries: checked against the
+    kernel's product ``ref`` and timed (device and events) into ``r``."""
+    try:
+        A = csr_of(vals, pos, col, n)
+        check_close(f"{tag} library CSR vs kernel", torch.mv(A, x), ref,
+                    1e-5 if dtype == torch.float32 else 1e-12, atol_rel)
+        r["library_device_ms"] = device_ms(lambda: torch.mv(A, x))
+        r["library_ms"] = median_ms(lambda: torch.mv(A, x))
+        del A
+    except RuntimeError as e:
+        log(f"  library sparse CSR mv refused in {tag}: {e}")
+        r["library_device_ms"] = r["library_ms"] = None
+
+
 def phase_kernel(dev, mesh, dirichlet):
     from shakti_tpu_torch.fem.bell import bell_from_elements
     from shakti_tpu_torch.ops.spmv_cuda import (bell_operator_fn,
-                                                bell_operator_plain)
+                                                bell_operator_plain,
+                                                view_columns)
     inp = operator_inputs(mesh, dirichlet, np.random.default_rng(0))
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)  # > L2
     out = {}
@@ -251,20 +357,11 @@ def phase_kernel(dev, mesh, dirichlet):
         # the matvec as it was before the fusion: where, product, where, mul, add
         r["host_us_composed"] = host_us(lambda: torch.where(
             dirichlet, x, prod(torch.where(dirichlet, 0.0, x))) + extra * x)
-        r["bound_ms"], r["bound_by"] = bound(mesh, dtype, True)
-        r["bound_ms_product"], _ = bound(mesh, dtype, False)
-        try:
-            A = csr_of(vals, mesh)
-            y_lib = torch.mv(A, x)
-            check_close(f"bench shape {tag} library CSR vs kernel", y_lib,
-                        prod(x), 1e-5 if dtype == torch.float32 else 1e-12,
-                        atol_rel)
-            r["library_device_ms"] = device_ms(lambda: torch.mv(A, x))
-            r["library_ms"] = median_ms(lambda: torch.mv(A, x))
-            del A
-        except RuntimeError as e:
-            log(f"  library sparse CSR mv refused in {tag}: {e}")
-            r["library_device_ms"] = r["library_ms"] = None
+        r["bound_ms"], r["bound_by"] = bell_bound(mesh, dtype, True)
+        r["bound_ms_product"], _ = bell_bound(mesh, dtype, False)
+        library_times(r, f"bench shape {tag}", vals, mesh.bell_nz_pos,
+                      view_columns(mesh.bell_nz_pos, mesh.bell_nbr, mesh.bell_B),
+                      mesh.n_nodes, x, prod(x), dtype, atol_rel)
         log(f"  bench shape {tag}: kernel device {r['device_ms']:.5f} ms/launch"
             f" (product only {r['device_ms_product']:.5f}, L2 flushed "
             f"{r['device_ms_cold_l2']:.5f}; median of 50, profiler), "
@@ -338,9 +435,9 @@ def phase_main(dev, tmp):
     rdir = os.path.join(tmp, "bench_run")
     md = setup_bench.initialize(days=2, results_name=rdir)
     md.device = dev
-    spmv_cuda.launches = 0
+    spmv_cuda.reset_launches()
     out = md.solve(progress=False)
-    launches = spmv_cuda.launches
+    launches = spmv_cuda.launches["bell_spmv"]
     steps = out["steps"]
     if steps != 48:
         raise RuntimeError(f"expected 48 steps, ran {steps}")
@@ -380,7 +477,7 @@ def phase_main(dev, tmp):
         if abs(res[k] - ref) > 0.05 * ref:
             raise RuntimeError(f"{k} {res[k]} is not within 5 % of the dense "
                                f"kernel's {ref}")
-    return res, md, st
+    return res, md, st, rdir
 
 
 def phase_profile(dev, md, state):
@@ -432,15 +529,332 @@ def phase_profile(dev, md, state):
         f"{k} {100 * v / 1e6 / max(dev_s, 1e-12):.1f} %" for k, v in top))
 
 
+def phase_ell_kernel(dev, cases):
+    """ell_spmv against its mirror and plain twins on each (tag, mesh,
+    dirichlet) of ``cases``, f32 and f64, with and without the epilogue;
+    timed at each case whose tag does not start with 'ragged'.  Returns
+    {tag: {dtype: numbers}}."""
+    from shakti_tpu_torch.ops.spmv_cuda import (ell_operator_fn,
+                                                ell_operator_plain)
+    from shakti_tpu_torch.physics.residual import fold_operator_values
+    out = {}
+    for i, (tag, mesh, dirichlet) in enumerate(cases):
+        W = mesh.nz_pos.shape[0]
+        nnz = int((mesh.nz_pos >= 0).sum())
+        log(f"  {tag}: n={mesh.n_nodes} W={W} nonzeros={nnz}")
+        inp = operator_inputs(mesh, dirichlet, np.random.default_rng(10 + i))
+        out[tag] = {}
+        for dtype, rtol, atol_rel in TOLS:
+            dt = str(dtype).removeprefix("torch.")
+            vals = fold_operator_values(inp["J"].to(dtype), mesh)
+            x, extra = inp["x"].to(dtype), inp["extra"].to(dtype)
+            err = {epi: check_operator(f"{tag} {dt} {epi}", vals, mesh, x, d, e,
+                                       rtol, atol_rel, kernel="ell_spmv")
+                   for epi, (d, e) in (("product", (None, None)),
+                                       ("epilogue", (dirichlet, extra)))}
+            r = dict(max_abs_err=err["epilogue"],
+                     max_abs_err_product=err["product"], W=W, nnz=nnz,
+                     n=mesh.n_nodes)
+            if not tag.startswith("ragged"):
+                op = ell_operator_fn(vals, mesh, dirichlet, extra)
+                prod = ell_operator_fn(vals, mesh)
+                r["device_ms"] = device_ms(lambda: op(x), "ell_spmv")
+                r["device_ms_product"] = device_ms(lambda: prod(x), "ell_spmv")
+                r["ms"] = median_ms(lambda: op(x))
+                r["plain_device_ms"] = device_ms(
+                    lambda: ell_operator_plain(vals, mesh, x, dirichlet, extra))
+                r["plain_ms"] = median_ms(
+                    lambda: ell_operator_plain(vals, mesh, x, dirichlet, extra))
+                r["host_us"] = host_us(lambda: op(x))
+                r["bound_ms"], r["bound_by"] = ell_bound(mesh, dtype, True)
+                library_times(r, f"{tag} {dt}", vals, mesh.nz_pos, mesh.nz_col,
+                              mesh.n_nodes, x, prod(x), dtype, atol_rel)
+                log(f"  {tag} {dt}: kernel device {r['device_ms']:.5f} ms/launch"
+                    f" (product {r['device_ms_product']:.5f}), {r['ms']:.5f} "
+                    f"ms/call events; plain twin {r['plain_device_ms']:.5f} ms "
+                    f"device ({r['plain_ms']:.5f} events); library CSR mv "
+                    f"{r['library_device_ms']} ms device ({r['library_ms']} "
+                    f"events); bound {r['bound_ms']:.5f} ms by {r['bound_by']}")
+                del op, prod
+            out[tag][dt] = r
+            del vals
+    return out
+
+
+def scale_model(nx=1000):
+    """scripts/scale_bench.py's configuration on the port's ModelSetup:
+    1,002,001 nodes and 2M triangles at 2 km (nx = 1000); f32, two-level,
+    no lag carry, 48 hourly times of which phase 8 runs the first 24, saves
+    every 12."""
+    from shakti_tpu_torch.api.model import ModelSetup
+    from shakti_tpu_torch.mesh.generate import rectangle_mesh
+    from shakti_tpu_torch.solve.newton import NewtonConfig
+    h = 2000.0
+    nodes, cells = rectangle_mesh(nx, nx, nx * h, nx * h, jitter=0.25, seed=0)
+    md = ModelSetup(nodes, cells)
+    md.solver = NewtonConfig(lag_operator=False, precond="two_level")
+    md.z_b = 0.002 * md.x - 100.0
+    md.z_s = md.z_b + 1200.0 + 0.001 * (md.x - nx * h / 2)
+    md.G = np.full(md.x.size, 0.06)
+    md.N_bdry = 3.7e5
+    md.OutflowBoundary = lambda p: p[:, 0] < 1e-6
+    rng = np.random.default_rng(0)
+    md.b_init = np.maximum(0.001 + rng.normal(scale=5e-4, size=md.x.size), 1e-5)
+    md.N_init = np.full(md.x.size, md.N_bdry)
+    md.storage_on = False
+    md.timesteps = np.linspace(0, 48 * 3600.0, 48)[:24]
+    md.nt_save = 12
+    return md
+
+
+def phase_scale(dev, md, frozen):
+    """Phase 8: the 1M-node model through api/run.solve (its freeze is
+    ``frozen``, made once for phases 7 and 8).  Times each window between
+    synchronizations; returns the numbers and the ell_spmv launches."""
+    from shakti_tpu_torch.api import run as trun
+    from shakti_tpu_torch.ops import spmv_cuda
+    mesh, _, _, cfg = frozen
+    if (mesh.n_nodes, mesh.bcsr_B, cfg.coarse_block, cfg.lag_operator) != (
+            1_002_001, 32, 1024, False):
+        raise RuntimeError(f"auto at 1M nodes: B {mesh.bcsr_B}, coarse "
+                           f"{cfg.coarse_block}, lag {cfg.lag_operator}")
+    windows, plain_calls = [], {"ell": 0, "bell": 0}
+    real_window = trun.run_window
+    real_plain = spmv_cuda.ell_operator_plain, spmv_cuda.bell_operator_plain
+
+    def timed_window(step_fn, state, forcing):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        state, d = real_window(step_fn, state, forcing)
+        torch.cuda.synchronize(dev)
+        windows.append((time.perf_counter() - t0, d))
+        return state, d
+
+    def counted(name, fn):
+        def wrapped(*a, **k):
+            plain_calls[name] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    trun.run_window = timed_window
+    spmv_cuda.ell_operator_plain = counted("ell", real_plain[0])
+    spmv_cuda.bell_operator_plain = counted("bell", real_plain[1])
+    md.device = dev
+    md.freeze = lambda device=None: frozen
+    torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        spmv_cuda.reset_launches()
+        out = md.solve(progress=False)
+        launches = dict(spmv_cuda.launches)
+    finally:
+        trun.run_window = real_window
+        spmv_cuda.ell_operator_plain, spmv_cuda.bell_operator_plain = real_plain
+        del md.freeze
+    st = out["state"]
+    for k in ("N", "b", "q", "melt"):
+        if not torch.isfinite(getattr(st, k)).all():
+            raise RuntimeError(f"non-finite {k} after the 1M-node run")
+    if out["steps"] != 24 or launches["ell_spmv"] <= 0 or any(plain_calls.values()):
+        raise RuntimeError(f"1M-node run: {out['steps']} steps, launches "
+                           f"{launches}, plain twin calls {plain_calls}")
+    wall, d = windows[1]
+    res = dict(nodes=mesh.n_nodes, steps=out["steps"], launches=launches["ell_spmv"],
+               ms_per_step_window2=1e3 * wall / d["newton_iters"].size,
+               window2_steps=int(d["newton_iters"].size),
+               newton_mean=out["newton_iters_total"] / out["steps"],
+               cg_mean=out["cg_iters_total"] / out["steps"],
+               newton_window2=d["newton_iters"].tolist(),
+               cg_window2=d["cg_iters"].tolist(),
+               ms_per_step_all=1e3 * out["wall_time"] / out["steps"],
+               peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    log("  1M-node run: " + json.dumps(res))
+    return res
+
+
+def bench_f64(dev, op="auto", **solver):
+    """The bench model in float64 for its first 4 hourly steps."""
+    import dataclasses
+    from shakti_tpu_torch.setups import setup_bench
+    md = setup_bench.initialize(days=2)
+    md.device, md.dtype, md.operator = dev, torch.float64, op
+    md.timesteps = md.timesteps[:4]
+    if op == "bcsr":
+        md.operator_block = 32
+    if solver:
+        md.solver = dataclasses.replace(md.solver, **solver)
+    return md
+
+
+def run_counted(md, **kw):
+    """md.solve with every launch count set to 0 just before and read just
+    after."""
+    from shakti_tpu_torch.ops import spmv_cuda
+    spmv_cuda.reset_launches()
+    out = md.solve(progress=False, **kw)
+    return out, dict(spmv_cuda.launches)
+
+
+def phase_formats(dev):
+    """Phase 9: the four formats agree on the bench model in float64."""
+    ref, res = None, {}
+    for op, kernel in (("bell", "bell_spmv"), ("ell", "ell_spmv"),
+                       ("bcsr", "ell_spmv"), ("cells", None)):
+        md = bench_f64(dev, op, lag_operator=None)
+        out, launches = run_counted(md)
+        if kernel is not None and launches[kernel] <= 0:
+            raise RuntimeError(f"{op}: {kernel} never launched ({launches})")
+        N = md.to_user_order(out["state"].N)
+        b = md.to_user_order(out["state"].b)
+        r = dict(newton=out["newton_iters_total"], cg=out["cg_iters_total"],
+                 launches=launches)
+        if ref is None:
+            ref = (N, b)
+        else:
+            r["err_N"] = float(np.abs(N - ref[0]).max() / np.abs(ref[0]).max())
+            r["err_b"] = float(np.abs(b - ref[1]).max() / np.abs(ref[1]).max())
+            if max(r["err_N"], r["err_b"]) > 1e-7:
+                raise RuntimeError(f"{op} differs from bell: {r}")
+        res[op] = r
+        log(f"  {op}: " + json.dumps(r))
+    return res, ref[0]
+
+
+WRAPPER = """import numpy as np
+
+from shakti_tpu_torch.setups import setup_bench
+
+
+def initialize():
+    md = setup_bench.initialize(days=2, results_name={rdir!r})
+    md.timesteps = md.timesteps[:{steps}]
+    return md
+"""
+
+
+def phase_resume(dev, tmp, full_dir):
+    """Phase 10: 25 steps, then --resume through cli.main to step 48; every
+    output equal to phase 5's uninterrupted run."""
+    from shakti_tpu_torch.cli import main as cli_main
+    from shakti_tpu_torch.ops import spmv_cuda
+    rdir = os.path.join(tmp, "resumed")
+    launches = {}
+    for steps, extra in ((25, []), (48, ["--resume"])):
+        path = os.path.join(tmp, f"wrap_{steps}.py")
+        with open(path, "w") as f:
+            f.write(WRAPPER.format(rdir=rdir, steps=steps))
+        spmv_cuda.reset_launches()
+        if cli_main([path, "--device", str(dev), "--quiet", *extra]) != 0:
+            raise RuntimeError(f"cli.main {extra} failed")
+        launches[steps] = spmv_cuda.launches["bell_spmv"]
+    a = np.load(os.path.join(full_dir, "checkpoint.npz"))
+    b = np.load(os.path.join(rdir, "checkpoint.npz"))
+    same = {k: bool(np.array_equal(a[k], b[k])) for k in ("N", "b", "q", "melt")}
+    for k in ("N", "b", "qx", "qy"):
+        same[f"{k}.npy"] = bool(np.array_equal(
+            np.load(os.path.join(full_dir, f"{k}.npy")),
+            np.load(os.path.join(rdir, f"{k}.npy"))))
+    meta = json.load(open(os.path.join(rdir, "run_meta.json")))
+    log(f"  resume: equal {same}, resumed_from {meta['resumed_from']}, "
+        f"bell_spmv launches {launches}")
+    if not all(same.values()) or meta["resumed_from"] != 25 or min(
+            launches.values()) <= 0:
+        raise RuntimeError("resume is not bit-exact")
+    return dict(equal=same, launches=launches)
+
+
+def phase_bootstrap(dev, tmp):
+    """Phase 11: setup_cooke2's reference cold start, 24 float64 bootstrap
+    steps on the card then float32, 3 days."""
+    from shakti_tpu_torch.api import run as trun
+    from shakti_tpu_torch.setups import setup_cooke2
+    env = {"SHAKTI_MESH_DIR": os.path.join(HERE, "assets", "cooke2_synth"),
+           "SHAKTI_REFERENCE_BINIT": "1"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        md = setup_cooke2.initialize(days=3, results_name=os.path.join(tmp, "ck2"))
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    md.device = dev
+    boot = {}
+    real = trun._bootstrap_f64
+
+    def spy(*a):
+        state, wins, end = real(*a)
+        boot.update(state=state, wins=wins, end=end)
+        return state, wins, end
+
+    trun._bootstrap_f64 = spy
+    try:
+        t0 = time.perf_counter()
+        out, launches = run_counted(md)
+        wall = time.perf_counter() - t0
+    finally:
+        trun._bootstrap_f64 = real
+    s64 = boot["state"]
+    for k in ("N", "b", "q", "melt", "N_prev"):
+        t = getattr(s64, k)
+        if t.dtype != torch.float64 or t.device.type != "cuda":
+            raise RuntimeError(f"bootstrap {k}: {t.dtype} on {t.device}")
+    if out["state"].N.dtype != torch.float32:
+        raise RuntimeError("the run after the bootstrap is not float32")
+    dg = np.concatenate([w[3] for w in boot["wins"]], axis=1)
+    steps = boot["end"] + out["steps"]
+    res = dict(steps=steps, boot_steps=boot["end"],
+               boot_newton=int(dg[1].sum()), boot_cg=int(dg[2].sum()),
+               f32_newton=out["newton_iters_total"] - int(dg[1].sum()),
+               f32_cg=out["cg_iters_total"] - int(dg[2].sum()),
+               wall_s=wall, launches=launches,
+               b_negative_share=float((md.b_init < 0).mean()))
+    log("  bootstrap: " + json.dumps(res))
+    if steps != 72 or launches["bell_spmv"] <= 0:
+        raise RuntimeError(f"bootstrap run: {res}")
+    return res
+
+
+def phase_bicgstab(dev, N_cg):
+    """Phase 12: BiCGStab on the bench model in float64, against phase 9's
+    cg run."""
+    md = bench_f64(dev, krylov="bicgstab", lag_operator=None)
+    out, launches = run_counted(md)
+    N = md.to_user_order(out["state"].N)
+    err = float(np.abs(N - N_cg).max() / np.abs(N_cg).max())
+    res = dict(newton=out["newton_iters_total"], krylov=out["cg_iters_total"],
+               err_N=err, launches=launches)
+    log("  bicgstab: " + json.dumps(res))
+    if err > 1e-7 or launches["bell_spmv"] <= 0:
+        raise RuntimeError(f"bicgstab: {res}")
+    return res
+
+
 # the kernels line: "ms", "plain_ms" and "library_ms" are times per call
 # between CUDA events (host work included), as "ms" has been since the first
 # kernel; the *_device_ms are torch.profiler's device times
 LINE_KEYS = ("max_abs_err", "ms", "device_ms", "plain_ms", "plain_device_ms",
              "library_ms", "library_device_ms", "bound_ms", "host_us",
              "host_us_composed")
+ELL_LINE_KEYS = tuple(k for k in LINE_KEYS if k != "host_us_composed")
 
 
-def main():
+PHASES = ("kernel", "goldens", "main", "ell", "scale", "formats", "resume",
+          "bootstrap", "bicgstab")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of " + ",".join(PHASES)
+                    + " (resume needs main, bicgstab needs formats, scale "
+                    "needs ell); the result lines need all of them")
+    args = ap.parse_args(argv)
+    phases = args.phases.split(",")
+    if not set(phases) <= set(PHASES):
+        raise SystemExit(f"unknown phases {set(phases) - set(PHASES)}")
+    t_start = time.perf_counter()
     # ---- 1. the card ----
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -453,51 +867,137 @@ def main():
         f" {torch.cuda.device_count()} visible)")
     log(f"nvidia-smi: {smi}")
 
-    # ---- 2. build ----
+    # ---- 2. build: one nvcc per source, started together ----
     from shakti_tpu_torch.ops import spmv_cuda
     t0 = time.perf_counter()
-    info = spmv_cuda.build()
-    log(f"[build] bell_spmv: {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {info['seconds']:.2f} s) -> {info['path']}")
-    for line in info["log"].splitlines():
-        if "ptxas info" in line and ("Used" in line or "Compiling" in line):
-            log(f"  {line.strip()}")
+    with concurrent.futures.ThreadPoolExecutor(len(spmv_cuda.KERNELS)) as ex:
+        infos = dict(zip(spmv_cuda.KERNELS,
+                         ex.map(spmv_cuda.build, spmv_cuda.KERNELS)))
+    log(f"[build] {time.perf_counter() - t0:.2f} s for {len(infos)} kernels")
+    for name, info in infos.items():
+        log(f"  {name}: nvcc {info['seconds']:.2f} s -> {info['path']}")
+        for line in info["log"].splitlines():
+            if "ptxas info" in line and ("Used" in line or "Compiling" in line):
+                log(f"    {line.strip()}")
 
-    # ---- 3. kernel vs plain at the bench shapes ----
+    def stamp(name):
+        log(f"[{name}] (t = {time.perf_counter() - t_start:.1f} s)")
+
+    kres = mres = sres = eres = None
+    # ---- 3. bell_spmv vs plain at the bench shapes ----
     from shakti_tpu_torch.setups import setup_bench
-    md = setup_bench.initialize(days=2)
-    mesh, static = md.freeze(dev)[:2]
-    NB, KB = mesh.bell_nbr.shape
-    W = mesh.bell_nz_pos.shape[0]
-    log(f"[kernel] bench operator: n={mesh.n_nodes} NB={NB} KB={KB} "
-        f"B={mesh.bell_B}; structural view W={W}, "
-        f"{int((mesh.bell_nz_pos >= 0).sum())} nonzeros")
-    if (NB, KB, mesh.bell_B, mesh.n_nodes, W) != (96, 11, 128, 12270, 10):
-        raise RuntimeError("bench operator shape changed")
-    kres = phase_kernel(dev, mesh, static.dirichlet)
-    del mesh, static, md
+    if "kernel" in phases:
+        stamp("kernel")
+        md = setup_bench.initialize(days=2)
+        mesh, static = md.freeze(dev)[:2]
+        NB, KB = mesh.bell_nbr.shape
+        W = mesh.bell_nz_pos.shape[0]
+        log(f"  bench operator: n={mesh.n_nodes} NB={NB} KB={KB} "
+            f"B={mesh.bell_B}; structural view W={W}, "
+            f"{int((mesh.bell_nz_pos >= 0).sum())} nonzeros")
+        if (NB, KB, mesh.bell_B, mesh.n_nodes, W) != (96, 11, 128, 12270, 10):
+            raise RuntimeError("bench operator shape changed")
+        kres = phase_kernel(dev, mesh, static.dirichlet)
+        kres["W"] = W
+        del mesh, static, md
 
     # ---- 4. goldens on the card ----
-    log("[goldens] float64 on the card")
-    phase_goldens(dev)
+    if "goldens" in phases:
+        stamp("goldens: float64 on the card")
+        phase_goldens(dev)
 
-    # ---- 5. main path at full size ----
-    log("[main] bench model, 2 days of hourly steps, float32")
-    torch.cuda.reset_peak_memory_stats(dev)
     with tempfile.TemporaryDirectory() as tmp:
-        mres, md, state = phase_main(dev, tmp)
-    log("[profile] one more steady day of the main path")
-    phase_profile(dev, md, state)
+        # ---- 5, 6. main path at full size, then its profile ----
+        if "main" in phases:
+            stamp("main: bench model, 2 days of hourly steps, float32")
+            torch.cuda.reset_peak_memory_stats(dev)
+            mres, md, state, main_dir = phase_main(dev, tmp)
+            stamp("profile: one more steady day of the main path")
+            phase_profile(dev, md, state)
+            del md, state
 
+        # ---- 7. ell_spmv vs plain; 8. the 1M-node mesh ----
+        if "ell" in phases:
+            stamp("ell: ell_spmv at the bench (ELL, BCSR 32), large and "
+                  "ragged shapes")
+            cases = []
+            for op in ("ell", "bcsr"):
+                md = setup_bench.initialize(days=2)
+                md.operator, md.operator_block = op, 32
+                mesh, static = md.freeze(dev)[:2]
+                cases.append((f"bench {op}", mesh, static.dirichlet))
+            from shakti_tpu_torch.setups import setup_slab
+            for op in ("ell", "bcsr"):
+                md = setup_slab.initialize(nx=12, ny=12)
+                md.operator, md.operator_block = op, 32
+                mesh, static = md.freeze(dev)[:2]
+                cases.append((f"ragged n={mesh.n_nodes} {op}", mesh,
+                              static.dirichlet))
+            smd = scale_model()
+            t0 = time.perf_counter()
+            frozen = smd.freeze(dev)
+            torch.cuda.synchronize(dev)
+            freeze_s = time.perf_counter() - t0
+            log(f"  large mesh: freeze {freeze_s:.2f} s host time, "
+                f"{frozen[0].n_nodes} nodes, {frozen[0].n_cells} cells, BCSR "
+                f"B {frozen[0].bcsr_B} nnzb {frozen[0].bcsr_brow.shape[0]}, "
+                f"coarse block {frozen[3].coarse_block}")
+            cases.append((f"large bcsr n={frozen[0].n_nodes}", frozen[0],
+                          frozen[1].dirichlet))
+            eres = phase_ell_kernel(dev, cases)
+            del cases, mesh, static
+            if "scale" in phases:
+                stamp("scale: 24 steps on the large mesh through api/run.solve")
+                sres = phase_scale(dev, smd, frozen)
+                sres["freeze_s"] = freeze_s
+            del smd, frozen
+            torch.cuda.empty_cache()
+
+        # ---- 9. formats agree; 12. BiCGStab ----
+        if "formats" in phases:
+            stamp("formats: bench model, float64, 4 steps, four operators")
+            fres, N_cg = phase_formats(dev)
+            if "bicgstab" in phases:
+                stamp("bicgstab: bench model, float64, 4 steps")
+                phase_bicgstab(dev, N_cg)
+
+        # ---- 10. resume through the CLI ----
+        if "resume" in phases and "main" in phases:
+            stamp("resume: 25 steps, then --resume to 48")
+            phase_resume(dev, tmp, main_dir)
+
+        # ---- 11. the float64 bootstrap on the card ----
+        if "bootstrap" in phases:
+            stamp("bootstrap: setup_cooke2, reference cold start, 3 days")
+            phase_bootstrap(dev, tmp)
+    stamp("done")
+
+    if phases != list(PHASES):
+        log("partial run: no result lines")
+        return 0
     f32 = kres["float32"]
+    large = next(v for k, v in eres.items() if k.startswith("large"))
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"kernels": [{
         "name": "bell_spmv", "route": "cuda",
         "source": "shakti_tpu_torch/csrc/bell_spmv.cu",
         "replaces": "shakti_tpu/ops/spmv_pallas.py:46",
-        "launches": mres["launches"], "W": W,
+        "launches": mres["launches"], "W": kres["W"],
         **{k: f32[k] for k in LINE_KEYS}, "bound_by": f32["bound_by"],
-        "float64": {k: kres["float64"][k] for k in LINE_KEYS}}]}),
+        "float64": {k: kres["float64"][k] for k in LINE_KEYS}}, {
+        "name": "ell_spmv", "route": "cuda",
+        "source": "shakti_tpu_torch/csrc/ell_spmv.cu",
+        "replaces": "none (not a TPU kernel): shakti_tpu/fem/bcsr.py:84 "
+                    "bcsr_matvec and shakti_tpu/fem/ell.py:91 ell_matvec "
+                    "run in XLA",
+        "launches": sres["launches"], "W": large["float32"]["W"],
+        "n": large["float32"]["n"], "nnz": large["float32"]["nnz"],
+        **{k: large["float32"][k] for k in ELL_LINE_KEYS},
+        "bound_by": large["float32"]["bound_by"],
+        "float64": {k: large["float64"][k] for k in ELL_LINE_KEYS},
+        "bench": {tag: {dt: {k: r[k] for k in ELL_LINE_KEYS}
+                        for dt, r in v.items()}
+                  for tag, v in eres.items() if tag.startswith("bench")}}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

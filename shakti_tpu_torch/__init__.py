@@ -6,16 +6,17 @@ reference) to PyTorch on an NVIDIA H100.  The layout mirrors
 under the same path:
 
   params     physical constants
-  mesh/      device Mesh (frozen dataclass of tensors) + block-ELL structure,
-             host mesh generation, .msh reading and boundary geometry
-  fem/       gather/scatter/averaging primitives, quadrature, block-ELL
-             operator
+  mesh/      device Mesh (frozen dataclass of tensors) in one operator
+             format, host mesh generation, .msh reading, boundary geometry
+  fem/       gather/scatter/averaging primitives, quadrature, the
+             block-ELL, scalar-ELL and block-CSR operator formats
   physics/   constitutive laws + weak-form residual and element Jacobian
-  solve/     Newton + PCG + two-level preconditioner + time stepping
+  solve/     Newton + CG/BiCGStab + two-level preconditioner + time stepping
   ops/       hand-written CUDA kernels (csrc/) and their plain twins
   data/      gridded-data interpolation onto the mesh
   parallel/  RCB node ordering
   api/       ModelSetup and the transient run layer
+  io/        checkpoints, in shakti_tpu's format
   setups/    experiment setups built on this package's ModelSetup
 
 JAX's ``while_loop``/``scan``/``cond`` become Python loops and ``if``s; each

@@ -3,9 +3,11 @@
 A mutable setup object with the JAX class's attributes: construct with raw
 mesh arrays, set fields/toggles/ICs as numpy arrays, then ``solve()``.
 :meth:`ModelSetup.freeze` builds the immutable device problem on
-``self.device``.  The port runs the block-ELL operator, the format the TPU
-runs for meshes of up to 200k nodes, with RCB node renumbering; outputs are
-mapped back to the caller's node order through ``node_iperm``.
+``self.device``.  The operator format follows the TPU's rule on every
+device: block-ELL up to 200k nodes, block-CSR beyond, both with RCB node
+renumbering (outputs are mapped back to the caller's node order through
+``node_iperm``); scalar ELL and the matrix-free 'cells' operator are chosen
+explicitly (``md.operator``), in the caller's node order.
 """
 
 from __future__ import annotations
@@ -17,15 +19,15 @@ import torch
 
 from shakti_tpu_torch.data.interp import GridInterpolator, subset_grid
 from shakti_tpu_torch.mesh import geometry as geo
-from shakti_tpu_torch.mesh.mesh import build_mesh, cell_geometry
+from shakti_tpu_torch.mesh.mesh import OPERATORS, build_mesh, cell_geometry
 from shakti_tpu_torch.parallel.partition import rcb_order
 from shakti_tpu_torch.params import DEFAULT_PARAMS, PhysicalParams
 from shakti_tpu_torch.solve.newton import NewtonConfig, check_config, zero_lag
 from shakti_tpu_torch.solve.timestep import State, make_static_fields
 from shakti_tpu_torch.utils.backend import resolve_device
 
-# past this size the TPU switches block-ELL for block-CSR
-# (shakti_tpu/api/model.py:221), which the port does not have yet
+# past this size "auto" switches block-ELL for block-CSR
+# (shakti_tpu/api/model.py:221): padding waste and memory
 BELL_MAX_NODES = 200_000
 
 
@@ -68,7 +70,7 @@ class ModelSetup:
         self.b_min = 1.0e-5
         # None (unbounded), "thickness" (cap at z_s - z_b) or an (n,) array
         self.b_cap = None
-        # float64 cold-start bootstrap steps (not ported yet; 0 = off)
+        # float64 cold-start bootstrap steps (api/run._bootstrap_f64; 0 = off)
         self.bootstrap_steps = 0
         self.outline = None
 
@@ -84,8 +86,11 @@ class ModelSetup:
         self.degree_day = None           # SHMIP D/F degree-day melt dict
 
         self.solver = NewtonConfig(adaptive_dt_levels=1)
-        # 'auto' = block-ELL with RCB renumbering (the port's only format)
+        # 'auto' (bell up to 200k nodes, bcsr beyond), 'bell', 'bcsr', 'ell'
+        # or 'cells'; operator_block: the block formats' edge (None: 128 for
+        # bell, 32 for bcsr, 16 beyond 6M nodes)
         self.operator = "auto"
+        self.operator_block = None
         self.node_iperm = None
 
     # ------------------------------------------------------------------ setup
@@ -158,48 +163,48 @@ class ModelSetup:
         """Build the immutable device problem (mesh, static_fields,
         initial_state, newton_config) on ``device`` (default self.device).
 
-        Nodes are renumbered by recursive coordinate bisection and the
-        operator is built in block-ELL form; ``self.node_iperm`` is set to
-        the solver-order -> user-order permutation."""
+        For the block formats the nodes are renumbered by recursive
+        coordinate bisection and ``self.node_iperm`` is set to the
+        solver-order -> user-order permutation (None otherwise)."""
         dev = resolve_device(self.device if device is None else device)
         self.validate(require_timesteps=False)
         n = self.nodes.shape[0]
         op = self.operator
         if op == "auto":
-            if n > BELL_MAX_NODES:
-                raise NotImplementedError(
-                    f"{n} nodes: beyond {BELL_MAX_NODES} the TPU runs block-"
-                    "CSR, which the port does not have yet (ROADMAP, still "
-                    "to port, item 1)")
-            op = "bell"
-        if op != "bell":
-            raise NotImplementedError(
-                f"operator {op!r}: the port has block-ELL only so far; "
-                "scalar ELL and block-CSR are ROADMAP, still to port, item 1")
+            op = "bell" if n <= BELL_MAX_NODES else "bcsr"
+        if op not in OPERATORS:
+            raise ValueError(f"md.operator must be 'auto' or one of "
+                             f"{OPERATORS}, got {op!r}")
         check_config(self.solver)
 
-        perm = rcb_order(self.nodes)
-        iperm = np.argsort(perm)
-        nodes = self.nodes[perm]
-        cells = iperm[self.cells].astype(np.int32)
-        self.node_iperm = iperm
+        nodes, cells, perm = self.nodes, self.cells, None
+        self.node_iperm = None
+        if op in ("bell", "bcsr"):
+            perm = rcb_order(self.nodes)
+            iperm = np.argsort(perm)
+            nodes = self.nodes[perm]
+            cells = iperm[self.cells].astype(np.int32)
+            self.node_iperm = iperm
 
         def p(a):
-            return np.asarray(a)[perm]
+            return np.asarray(a) if perm is None else np.asarray(a)[perm]
 
         cfg = self.solver.for_dtype(self.dtype)
         if cfg.coarse_block is None:
-            # auto coarse aggregate: start from the 128-wide blocks, cap the
-            # dense coarse problem at ~1.5k dofs
-            blk = 128
+            # auto coarse aggregate: cap the dense coarse problem at ~1.5k
+            # dofs; on block-ELL start from its 128-wide blocks
+            blk = 128 if op == "bell" else 64
             while n // blk > 1536:
                 blk *= 2
             cfg = dataclasses.replace(cfg, coarse_block=blk)
         if cfg.lag_operator is None:
-            # auto: carry the operator in the block-ELL regime
-            cfg = dataclasses.replace(cfg, lag_operator=True)
+            # auto: carry the operator in the block-ELL regime only
+            cfg = dataclasses.replace(cfg, lag_operator=op == "bell")
+        blk = self.operator_block
+        if blk is None:
+            blk = (32 if n <= 6_000_000 else 16) if op == "bcsr" else 128
         mesh = build_mesh(nodes, cells, dtype=self.dtype, device=dev,
-                          bell_block=128)
+                          operator=op, bell_block=blk)
         dnodes = geo.locate_boundary_nodes(nodes, cells, self.OutflowBoundary) \
             if (self.outflow_on and self.OutflowBoundary is not None) \
             else np.zeros(0, dtype=np.int64)
@@ -237,4 +242,4 @@ class ModelSetup:
     def solve_steady(self, **kw):
         raise NotImplementedError(
             "steady-state solves (PTC) are not ported yet (ROADMAP, still to "
-            "port, item 9)")
+            "port, item 4)")

@@ -1,6 +1,6 @@
 """Command-line launcher (reference source/main.py equivalent).
 
-    python -m shakti_tpu_torch <setup> [--device cuda|cpu] [--quiet]
+    python -m shakti_tpu_torch <setup> [--device cuda|cpu] [--resume] [--quiet]
 
 Imports the named setup module, calls its ``initialize()`` to get a
 ModelSetup of this package, and runs ``md.solve()`` on the chosen device.
@@ -54,7 +54,8 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device: cuda (default), cuda:N or cpu")
     ap.add_argument("--resume", action="store_true",
-                    help="resume from a checkpoint (not ported yet)")
+                    help="resume from the checkpoint in the results "
+                         "directory (one written by either package)")
     ap.add_argument("--quiet", action="store_true")
     args = ap.parse_args(argv)
 

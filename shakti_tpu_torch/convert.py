@@ -3,7 +3,9 @@
 :func:`problem_from_numpy` takes shakti_tpu's ``freeze()`` outputs as plain
 numpy data (mesh/static/state: dicts field name -> array; cfg: dict of
 NewtonConfig fields) and returns this package's Mesh, StaticFields, State
-and NewtonConfig on ``device``, lag carry included.  :func:`state_to_numpy`
+and NewtonConfig on ``device``, lag carry included, in whichever operator
+format the JAX mesh carries (bell_*, ell_* or bcsr_* fields, or none: the
+matrix-free operator).  :func:`state_to_numpy`
 is the reverse for a State.  No jax is imported: the caller does the
 ``np.asarray`` on the JAX side.
 """

@@ -5,7 +5,7 @@ and chunked into blocks of B; the assembled operator is dense B x B blocks
 ``vals`` (NB, KB, B, B) with neighbour-block ids ``nbr`` (NB, KB) (padding
 slots point at their own row block and hold zeros).
 
-The element -> block fold is a deterministic gather (:func:`gather_plan`):
+The element -> block fold is a deterministic gather (fem/ops.gather_plan):
 CUDA's ``index_add_`` would sum shared slots with atomics, in an order that
 changes from run to run.  The matvec on CUDA tensors reads only the
 structural nonzeros of ``vals`` through :func:`structural_view`
@@ -15,9 +15,9 @@ structural nonzeros of ``vals`` through :func:`structural_view`
 from __future__ import annotations
 
 import numpy as np
-import torch
 
-from shakti_tpu_torch.fem.ops import fixed_sum
+from shakti_tpu_torch.fem.ell import scalar_view
+from shakti_tpu_torch.fem.ops import plan_sum
 from shakti_tpu_torch.ops.spmv_cuda import W_MAX
 
 BLOCK = 128
@@ -59,28 +59,11 @@ def build_block_ell(cells: np.ndarray, n_nodes: int, B: int = BLOCK):
     return nbr, slot_map, diag_pos, KB
 
 
-def gather_plan(keys: np.ndarray):
-    """Host-side plan for a deterministic segment sum over ``keys``.
-
-    Returns (slots (U,) the distinct keys, idx (U, M) the positions of each
-    key's values in input order, padded with the sentinel len(keys), which
-    indexes an appended zero).  :func:`plan_sum` applies it."""
-    keys = np.asarray(keys, dtype=np.int64).reshape(-1)
-    order = np.argsort(keys, kind="stable")
-    slots, start, counts = np.unique(keys[order], return_index=True,
-                                     return_counts=True)
-    M = int(counts.max()) if counts.size else 0
-    idx = np.full((slots.size, M), keys.size, dtype=np.int64)
-    rank = np.arange(keys.size) - np.repeat(start, counts)
-    idx[np.repeat(np.arange(slots.size), counts), rank] = order
-    return slots, idx
-
-
 def structural_view(nbr, fold_slots, n: int, B: int):
     """Host-side scalar-ELL view of the operator's structural nonzeros.
 
     ``fold_slots`` are the distinct flat positions of vals (NB, KB, B, B)
-    that the fold writes (:func:`gather_plan`).  Returns nz_pos (W, n)
+    that the fold writes (fem/ops.gather_plan).  Returns nz_pos (W, n)
     int32, column-major: ``nz_pos[m, i]`` is the flat position of row i's
     m-th structural entry, in (k, j) order (the dense product's summation
     order without its zeros), padded with -1.  A position names its column
@@ -99,29 +82,13 @@ def structural_view(nbr, fold_slots, n: int, B: int):
     col = nbr[r, k] * B + slots % B
     if slots.size and max(row.max(), col.max()) >= n:
         raise ValueError(f"fold slots address rows/columns beyond n = {n}")
-    # slots ascend in (r, k, i, j) order, so a stable sort by row keeps each
-    # row's entries in (k, j) order
-    order = np.argsort(row, kind="stable")
-    counts = np.bincount(row, minlength=n)
-    W = max(int(counts.max()) if n else 0, 1)
-    if W > W_MAX:
-        raise ValueError(f"a row has {W} structural entries; the kernel takes "
-                         f"at most {W_MAX}")
-    rank = np.arange(slots.size) - np.repeat(
-        np.concatenate([[0], np.cumsum(counts)[:-1]]), counts)
-    nz_pos = np.full((W, n), -1, np.int32)
-    nz_pos[rank, row[order]] = slots[order]
+    # slots ascend in (r, k, i, j) order, so each row keeps its entries in
+    # (k, j) order
+    nz_pos, _ = scalar_view(row, slots, col, n)
+    if nz_pos.shape[0] > W_MAX:
+        raise ValueError(f"a row has {nz_pos.shape[0]} structural entries; "
+                         f"the kernel takes at most {W_MAX}")
     return nz_pos
-
-
-def plan_sum(values, slots, idx, size: int):
-    """out (size,) with out[slots[u]] = sum_m values[idx[u, m]] summed in m
-    order, zero elsewhere: a segment sum without atomics."""
-    flat = values.reshape(-1)
-    ext = torch.cat([flat, flat.new_zeros(1)])
-    out = flat.new_zeros(size)
-    out[slots] = fixed_sum(ext[idx], 1)
-    return out
 
 
 def bell_from_elements(J_c, mesh):

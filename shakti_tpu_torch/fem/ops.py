@@ -12,6 +12,7 @@ in a varying order.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -90,3 +91,30 @@ def interpolate_at_quad(phi, fc):
     if fc.dim() == 2:
         return fixed_sum(phi[None, :, :] * fc[:, None, :], 2)
     return fixed_sum(phi[None, :, :, None] * fc[:, None, :, :], 2)
+
+
+def gather_plan(keys: np.ndarray):
+    """Host-side plan for a deterministic segment sum over ``keys``.
+
+    Returns (slots (U,) the distinct keys, idx (U, M) the positions of each
+    key's values in input order, padded with the sentinel len(keys), which
+    indexes an appended zero).  :func:`plan_sum` applies it."""
+    keys = np.asarray(keys, dtype=np.int64).reshape(-1)
+    order = np.argsort(keys, kind="stable")
+    slots, start, counts = np.unique(keys[order], return_index=True,
+                                     return_counts=True)
+    M = int(counts.max()) if counts.size else 0
+    idx = np.full((slots.size, M), keys.size, dtype=np.int64)
+    rank = np.arange(keys.size) - np.repeat(start, counts)
+    idx[np.repeat(np.arange(slots.size), counts), rank] = order
+    return slots, idx
+
+
+def plan_sum(values, slots, idx, size: int):
+    """out (size,) with out[slots[u]] = sum_m values[idx[u, m]] summed in m
+    order, zero elsewhere: a segment sum without atomics."""
+    flat = values.reshape(-1)
+    ext = torch.cat([flat, flat.new_zeros(1)])
+    out = flat.new_zeros(size)
+    out[slots] = fixed_sum(ext[idx], 1)
+    return out

@@ -1,10 +1,13 @@
 """Device-side mesh: a frozen dataclass of tensors.
 
-Port of shakti_tpu/mesh/mesh.py for the block-ELL operator.  For P1
-triangles the dof map is the cell connectivity, so the function space is
-the arrays below plus derived static geometry.  Index arrays are int64
-(torch's indexing type); the JAX package's int32 ids map onto them
-value for value.
+Port of shakti_tpu/mesh/mesh.py.  For P1 triangles the dof map is the cell
+connectivity, so the function space is the arrays below plus derived static
+geometry, and at most one assembled-operator format: block-ELL ('bell'),
+scalar ELL ('ell'), block-CSR ('bcsr'), or none ('cells': the matrix-free
+operator).  Index arrays are int64 (torch's indexing type); the JAX
+package's int32 ids map onto them value for value.  The deterministic fold
+plans (fem/ops.gather_plan) and the scalar-ELL views the CUDA kernels read
+are derived here, once per mesh.
 """
 
 from __future__ import annotations
@@ -14,7 +17,12 @@ import dataclasses
 import numpy as np
 import torch
 
+from shakti_tpu_torch.fem import bcsr as bcsrm
 from shakti_tpu_torch.fem import bell as bellm
+from shakti_tpu_torch.fem import ell as ellm
+from shakti_tpu_torch.fem.ops import gather_plan
+
+OPERATORS = ("bell", "ell", "bcsr", "cells")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,16 +37,41 @@ class Mesh:
     # arrays, invalid slots = sentinel 3*n_cells (fem/ops.scatter_add_cells)
     inc_map: torch.Tensor      # (n_nodes, KI) int64
     # block-ELL structure (fem/bell.py)
-    bell_nbr: torch.Tensor     # (NB, KB) int64 neighbour block ids
-    bell_map: torch.Tensor     # (9*n_cells,) element -> flat vals position
-    bell_diag_pos: torch.Tensor  # (n_nodes,) flat diagonal positions
-    bell_B: int
-    # deterministic fold of the 9c element entries (fem/bell.gather_plan)
-    bell_fold_slots: torch.Tensor  # (U,) distinct flat vals positions
-    bell_fold_idx: torch.Tensor    # (U, M) element entries per slot
+    bell_nbr: torch.Tensor | None = None       # (NB, KB) neighbour block ids
+    bell_map: torch.Tensor | None = None       # (9c,) element -> flat position
+    bell_diag_pos: torch.Tensor | None = None  # (n_nodes,) flat diagonal
+    bell_B: int | None = None
+    # deterministic fold of the 9c element entries: distinct flat positions
+    # (U,) and the element entries of each (U, M)
+    bell_fold_slots: torch.Tensor | None = None
+    bell_fold_idx: torch.Tensor | None = None
     # scalar-ELL view of the structural nonzeros (fem/bell.structural_view),
-    # what the matvec kernel reads
-    bell_nz_pos: torch.Tensor  # (W, n_nodes) int32 flat vals positions, -1 pad
+    # what csrc/bell_spmv.cu reads: (W, n_nodes) int32 flat positions, -1 pad
+    bell_nz_pos: torch.Tensor | None = None
+    # scalar ELL structure (fem/ell.py)
+    ell_cols: torch.Tensor | None = None       # (n_nodes, K) neighbour ids
+    ell_map: torch.Tensor | None = None        # (9c,) element -> flat slot
+    ell_diag_slot: torch.Tensor | None = None  # (n_nodes,) diagonal slot
+    ell_fold_slots: torch.Tensor | None = None
+    ell_fold_idx: torch.Tensor | None = None
+    # block-CSR structure (fem/bcsr.py)
+    bcsr_brow: torch.Tensor | None = None      # (nnzb,) block rows (sorted)
+    bcsr_bcol: torch.Tensor | None = None      # (nnzb,) block columns
+    bcsr_blk: torch.Tensor | None = None       # (9c,) element -> block id
+    bcsr_off: torch.Tensor | None = None       # (9c,) within-block offset
+    bcsr_diag_blk: torch.Tensor | None = None  # (n_nodes,)
+    bcsr_diag_off: torch.Tensor | None = None  # (n_nodes,)
+    bcsr_B: int | None = None
+    bcsr_NB: int | None = None
+    bcsr_fold_slots: torch.Tensor | None = None
+    bcsr_fold_idx: torch.Tensor | None = None
+    # the plain matvec's fixed-order sum over each block row's blocks
+    bcsr_row_slots: torch.Tensor | None = None  # (NB',) block rows
+    bcsr_row_idx: torch.Tensor | None = None    # (NB', M) block ids, pad nnzb
+    # scalar-ELL view of the ELL or BCSR structural entries
+    # (fem/ell.scalar_view), what csrc/ell_spmv.cu reads: (W, n_nodes) int32
+    nz_pos: torch.Tensor | None = None  # flat positions in vals, -1 pad
+    nz_col: torch.Tensor | None = None  # columns (the row itself on pads)
 
     @property
     def n_nodes(self) -> int:
@@ -79,10 +112,11 @@ def incidence_map(cells: np.ndarray, n_nodes: int) -> np.ndarray:
 
 
 def mesh_from_arrays(a: dict, *, dtype, device) -> Mesh:
-    """Mesh from host arrays: nodes, cells, area, grads, node_area,
-    cell_valid, inc_map, bell_nbr, bell_map, bell_diag_pos, bell_B (the
-    field names of both packages' Mesh).  Derives the deterministic fold
-    plan and the structural view."""
+    """Mesh from host arrays under the field names of both packages' Mesh:
+    nodes, cells, area, grads, node_area, cell_valid, inc_map, and the
+    bell_*, ell_* or bcsr_* fields of one operator format (none: the
+    matrix-free 'cells' operator).  Derives the fold plans and the
+    scalar-ELL view of that format."""
     def f(k):
         return torch.as_tensor(np.array(a[k], np.float64), dtype=dtype,
                                device=device)
@@ -90,33 +124,65 @@ def mesh_from_arrays(a: dict, *, dtype, device) -> Mesh:
     def i(x):
         return torch.as_tensor(np.array(x, np.int64), device=device)
 
-    B = int(a["bell_B"])
-    nbr = np.asarray(a["bell_nbr"], np.int64)
-    NB, KB = nbr.shape
-    fold_slots, fold_idx = bellm.gather_plan(a["bell_map"])
-    if fold_slots.size and fold_slots[-1] >= NB * KB * B * B:
-        raise ValueError("bell_map addresses slots outside (NB, KB, B, B)")
+    def i32(x):
+        return torch.as_tensor(x, device=device)
+
     n = np.asarray(a["nodes"]).shape[0]
-    nz_pos = bellm.structural_view(nbr, fold_slots, n, B)
+    kw = {}
+    if a.get("bcsr_brow") is not None:
+        B, NB = int(a["bcsr_B"]), int(a["bcsr_NB"])
+        brow, bcol = a["bcsr_brow"], a["bcsr_bcol"]
+        slots, idx = gather_plan(bcsrm.fold_keys(a["bcsr_blk"], a["bcsr_off"], B))
+        nnzb = np.asarray(brow).shape[0]
+        if slots.size and slots[-1] >= nnzb * B * B:
+            raise ValueError("bcsr_blk/bcsr_off address slots outside "
+                             "(nnzb, B, B)")
+        row_slots, row_idx = gather_plan(brow)
+        pos, col = bcsrm.bcsr_view(brow, bcol, slots, n, B)
+        kw = dict(bcsr_brow=i(brow), bcsr_bcol=i(bcol), bcsr_blk=i(a["bcsr_blk"]),
+                  bcsr_off=i(a["bcsr_off"]), bcsr_diag_blk=i(a["bcsr_diag_blk"]),
+                  bcsr_diag_off=i(a["bcsr_diag_off"]), bcsr_B=B, bcsr_NB=NB,
+                  bcsr_fold_slots=i(slots), bcsr_fold_idx=i(idx),
+                  bcsr_row_slots=i(row_slots), bcsr_row_idx=i(row_idx),
+                  nz_pos=i32(pos), nz_col=i32(col))
+    elif a.get("bell_nbr") is not None:
+        B = int(a["bell_B"])
+        nbr = np.asarray(a["bell_nbr"], np.int64)
+        NB, KB = nbr.shape
+        slots, idx = gather_plan(a["bell_map"])
+        if slots.size and slots[-1] >= NB * KB * B * B:
+            raise ValueError("bell_map addresses slots outside (NB, KB, B, B)")
+        kw = dict(bell_nbr=i(nbr), bell_map=i(a["bell_map"]),
+                  bell_diag_pos=i(a["bell_diag_pos"]), bell_B=B,
+                  bell_fold_slots=i(slots), bell_fold_idx=i(idx),
+                  bell_nz_pos=i32(bellm.structural_view(nbr, slots, n, B)))
+    elif a.get("ell_cols") is not None:
+        cols = np.asarray(a["ell_cols"])
+        slots, idx = gather_plan(a["ell_map"])
+        if slots.size and slots[-1] >= cols.size:
+            raise ValueError("ell_map addresses slots outside (n, K)")
+        pos, col = ellm.ell_view(cols, slots)
+        kw = dict(ell_cols=i(cols), ell_map=i(a["ell_map"]),
+                  ell_diag_slot=i(a["ell_diag_slot"]), ell_fold_slots=i(slots),
+                  ell_fold_idx=i(idx), nz_pos=i32(pos), nz_col=i32(col))
     return Mesh(
         nodes=f("nodes"), cells=i(a["cells"]), area=f("area"),
         grads=f("grads"), node_area=f("node_area"),
-        cell_valid=f("cell_valid"), inc_map=i(a["inc_map"]),
-        bell_nbr=i(nbr), bell_map=i(a["bell_map"]),
-        bell_diag_pos=i(a["bell_diag_pos"]), bell_B=B,
-        bell_fold_slots=i(fold_slots), bell_fold_idx=i(fold_idx),
-        bell_nz_pos=torch.as_tensor(nz_pos, device=device))
+        cell_valid=f("cell_valid"), inc_map=i(a["inc_map"]), **kw)
 
 
 def build_mesh(nodes: np.ndarray, cells: np.ndarray, *, dtype=torch.float64,
                device="cpu", operator: str = "bell",
                bell_block: int = 128) -> Mesh:
     """Construct a device Mesh from raw arrays (host-side preprocessing).
-    Nodes should already be ordered for block locality (RCB, api/model)."""
-    if operator != "bell":
-        raise NotImplementedError(
-            f"operator {operator!r}: the port has block-ELL only so far; "
-            "scalar ELL and block-CSR are ROADMAP, still to port, item 1")
+
+    ``operator``: 'bell', 'ell', 'bcsr' (both block formats with block edge
+    ``bell_block``) or 'cells' (no assembled operator).  Nodes should
+    already be ordered for block locality (RCB, api/model) for the block
+    formats."""
+    if operator not in OPERATORS:
+        raise ValueError(f"operator must be one of {OPERATORS}, got "
+                         f"{operator!r}")
     nodes = np.asarray(nodes, dtype=np.float64)
     cells = np.asarray(cells, dtype=np.int32)
     if cells.size and (cells.min() < 0 or cells.max() >= nodes.shape[0]):
@@ -126,13 +192,23 @@ def build_mesh(nodes: np.ndarray, cells: np.ndarray, *, dtype=torch.float64,
         raise ValueError("mesh contains degenerate (zero-area) cells")
     area = np.abs(signed_area)
     n = nodes.shape[0]
-    node_area = np.zeros(n)
-    np.add.at(node_area, cells.reshape(-1), np.repeat(area, 3))
-    nbr, bmap, dpos, _ = bellm.build_block_ell(cells, n, bell_block)
+    node_area = np.bincount(cells.reshape(-1), weights=np.repeat(area, 3),
+                            minlength=n)
     arrays = dict(
         nodes=nodes, cells=cells, area=area, grads=grads,
         node_area=np.where(node_area == 0.0, 1.0, node_area),
         cell_valid=np.ones(cells.shape[0]),
-        inc_map=incidence_map(cells, n),
-        bell_nbr=nbr, bell_map=bmap, bell_diag_pos=dpos, bell_B=bell_block)
+        inc_map=incidence_map(cells, n))
+    if operator == "bell":
+        nbr, bmap, dpos, _ = bellm.build_block_ell(cells, n, bell_block)
+        arrays.update(bell_nbr=nbr, bell_map=bmap, bell_diag_pos=dpos,
+                      bell_B=bell_block)
+    elif operator == "ell":
+        cols, smap, dslot = ellm.build_ell_map(cells, n)
+        arrays.update(ell_cols=cols, ell_map=smap, ell_diag_slot=dslot)
+    elif operator == "bcsr":
+        br, bc, blk, off, dblk, doff, NB = bcsrm.build_bcsr(cells, n, bell_block)
+        arrays.update(bcsr_brow=br, bcsr_bcol=bc, bcsr_blk=blk, bcsr_off=off,
+                      bcsr_diag_blk=dblk, bcsr_diag_off=doff,
+                      bcsr_B=bell_block, bcsr_NB=NB)
     return mesh_from_arrays(arrays, dtype=dtype, device=device)

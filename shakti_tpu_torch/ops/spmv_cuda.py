@@ -1,31 +1,39 @@
-"""The block-ELL operator matvec: the CUDA kernel csrc/bell_spmv.cu and its
-plain twins.
+"""The operator matvecs on the card: the CUDA kernels csrc/bell_spmv.cu and
+csrc/ell_spmv.cu, and their plain twins.
 
-Replaces shakti_tpu/ops/spmv_pallas.py:bell_matvec_pallas (the TPU's Pallas
-kernel) together with the operator epilogue around it
-(shakti_tpu/physics/residual.py:operator_from_values, and the diagonal
+Each computes an operator matvec together with the operator epilogue around
+it (shakti_tpu/physics/residual.py:operator_from_values, and the diagonal
 floor ``matvec0(x) + extra * x`` of shakti_tpu/solve/newton.py):
 
     xm = where(d, 0, x);  y0 = where(d, x, A xm);  y = y0 + extra * x
 
-:func:`bell_operator_fn` checks an operator once and returns its matvec.
-On CUDA tensors each call is one launch of the kernel (or an error), which
-reads only the operator's structural nonzeros through the mesh's scalar-ELL
-view (``mesh.bell_nz_pos``, fem/bell.structural_view, whose positions name
-their columns through ``mesh.bell_nbr``: :func:`view_columns`); see the note
-in the source.  On CPU tensors it computes
-:func:`bell_operator_plain`, the dense block-ELL product of
-shakti_tpu/fem/bell.py:bell_matvec with the epilogue composed in PyTorch.
-:func:`bell_operator_structural` is the kernel's mirror over the view, the
-same operations in the same order; tests and chip_smoke.py compare the
-kernel with it bit for bit.
+- **bell_spmv** replaces shakti_tpu/ops/spmv_pallas.py:bell_matvec_pallas
+  (the TPU's Pallas kernel), A in block-ELL.  :func:`bell_operator_fn`
+  checks an operator once and returns its matvec.  On CUDA tensors each
+  call is one launch, which reads only the structural nonzeros through the
+  mesh's view (``mesh.bell_nz_pos``, fem/bell.structural_view, whose
+  positions name their columns through ``mesh.bell_nbr``:
+  :func:`view_columns`).  On CPU tensors it computes
+  :func:`bell_operator_plain`, the dense block-ELL product of
+  shakti_tpu/fem/bell.py:bell_matvec with the epilogue composed in PyTorch.
+  :func:`bell_operator_structural` is the kernel's mirror over the view.
+- **ell_spmv** serves the scalar-ELL and the block-CSR operator, which the
+  JAX package computes in XLA (no TPU kernel).  :func:`ell_operator_fn`:
+  on CUDA tensors one launch reading the view ``mesh.nz_pos`` /
+  ``mesh.nz_col`` (fem/ell.scalar_view); on CPU tensors
+  :func:`ell_operator_plain` (fem/ell.ell_matvec or fem/bcsr.bcsr_matvec
+  with the epilogue composed); :func:`ell_operator_structural` is the
+  mirror.
+
+The mirrors do the kernels' operations in the kernels' order, so tests and
+chip_smoke.py compare each kernel with its mirror bit for bit.
 
 Build: at first use, ``nvcc -gencode arch=compute_90a,code=sm_90a`` compiles
-the source into ``build/shakti_tpu_torch/`` at the repository root (an
-installed package: the per-user cache, see :func:`_build_dir`), under a
-name keyed by the source's hash (an edited source rebuilds).  The library
-has a plain C interface and is loaded with ctypes.  A missing ``nvcc`` or a
-failed build raises with the compiler's output.
+each source into its own library under ``build/shakti_tpu_torch/`` at the
+repository root (an installed package: the per-user cache, see
+:func:`_build_dir`), named by the source's hash (an edited source rebuilds).
+The libraries have a plain C interface and load with ctypes.  A missing
+``nvcc`` or a failed build raises with the compiler's output.
 """
 
 from __future__ import annotations
@@ -41,14 +49,23 @@ from pathlib import Path
 
 import torch
 
+from shakti_tpu_torch.fem.bcsr import bcsr_matvec
+from shakti_tpu_torch.fem.ell import ell_matvec
 from shakti_tpu_torch.fem.ops import fixed_sum
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "bell_spmv.cu"
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _ROOT = Path(__file__).resolve().parents[2]
 
-# the kernel's compile-time maximum of structural entries per row (kWMax in
-# the source, which refuses a launch with more)
+# the kernels' compile-time maximum of structural entries per row (kWMax in
+# the sources, which refuse a launch with more)
 W_MAX = 16
+
+_p, _i = ctypes.c_void_p, ctypes.c_int
+# C signature of each library's f32/f64 entry points
+KERNELS = {
+    "bell_spmv": [_p, _p, _p, _i, _i, _i, _i, _p, _p, _p, _p, _i, _p],
+    "ell_spmv": [_p, _p, _p, _i, _i, _p, _p, _p, _p, _i, _p],
+}
 
 
 def _build_dir() -> Path:
@@ -76,24 +93,26 @@ def _nvcc() -> str:
         if c and os.path.exists(c):
             return c
     raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/"
-                       "bin): the block-ELL SpMV kernel is built from "
-                       f"{_SRC} at first use and has no fallback on CUDA")
+                       "bin): the SpMV kernels are built from "
+                       f"{_CSRC} at first use and have no fallback on CUDA")
 
 
 @functools.cache
-def build() -> dict:
-    """Compile (if needed) and load the kernel library.  Returns
-    dict(lib, path, seconds, log); ``seconds`` is 0.0 when a library for
-    this source hash was already built."""
-    src = _SRC.read_bytes()
+def build(name: str = "bell_spmv") -> dict:
+    """Compile (if needed) and load the library of kernel ``name`` (a key of
+    :data:`KERNELS`, source csrc/<name>.cu).  Returns dict(lib, path,
+    seconds, log); ``seconds`` is 0.0 when a library for this source hash
+    was already built.  Different kernels may build in parallel threads."""
+    src_path = _CSRC / f"{name}.cu"
+    src = src_path.read_bytes()
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    path = BUILD_DIR / f"libbell_spmv_{tag}.so"
+    path = BUILD_DIR / f"lib{name}_{tag}.so"
     log_path = path.with_suffix(".log")
     seconds = 0.0
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src_path)]
         t0 = time.perf_counter()
         r = subprocess.run(cmd, capture_output=True, text=True)
         seconds = time.perf_counter() - t0
@@ -101,36 +120,32 @@ def build() -> dict:
         if r.returncode != 0:
             tmp.unlink(missing_ok=True)
             raise RuntimeError(f"nvcc failed (exit {r.returncode}) building "
-                               f"{_SRC}:\n{log}")
+                               f"{src_path}:\n{log}")
         log_path.write_text(log)
         os.replace(tmp, path)
     lib = ctypes.CDLL(str(path))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.bell_spmv_f32, lib.bell_spmv_f64):
-        fn.argtypes = [p, p, p, i, i, i, i, p, p, p, p, i, p]
-        fn.restype = i
+    for fn in (getattr(lib, f"{name}_f32"), getattr(lib, f"{name}_f64")):
+        fn.argtypes = KERNELS[name]
+        fn.restype = _i
     log = log_path.read_text() if log_path.exists() else ""
     return {"lib": lib, "path": str(path), "seconds": seconds, "log": log}
 
 
-def _check(vals, mesh, dirichlet, extra):
-    """Shapes, dtypes, devices and layout of one operator (run once per
-    operator, not per matvec)."""
-    NB, KB = mesh.bell_nbr.shape
-    B, n = mesh.bell_B, mesh.n_nodes
-    if tuple(vals.shape) != (NB, KB, B, B):
-        raise ValueError(f"vals must be (NB, KB, B, B) = {(NB, KB, B, B)}, "
-                         f"got {tuple(vals.shape)}")
+# kernel launches since the last reset, per kernel: each launcher adds one
+# per launch (chip_smoke.py reads them to show a path went through a kernel)
+launches = dict.fromkeys(KERNELS, 0)
+
+
+def reset_launches():
+    for k in launches:
+        launches[k] = 0
+
+
+def _check_epilogue(vals, n, dirichlet, extra, tensors):
+    """Types, devices and layout shared by both operators (run once per
+    operator, not per matvec); ``tensors`` are the structure's."""
     if vals.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"vals must be float32 or float64, got {vals.dtype}")
-    pos, nbr = mesh.bell_nz_pos, mesh.bell_nbr
-    if (pos.dtype != torch.int32 or pos.dim() != 2 or pos.shape[1] != n
-            or not 1 <= pos.shape[0] <= W_MAX):
-        raise ValueError(f"the structural view must be int32 (W, {n}) with "
-                         f"1 <= W <= {W_MAX}, got {pos.dtype} "
-                         f"{tuple(pos.shape)}")
-    if nbr.dtype != torch.int64:
-        raise ValueError(f"nbr must be int64, got {nbr.dtype}")
     if dirichlet is not None and (dirichlet.dtype != torch.bool
                                   or tuple(dirichlet.shape) != (n,)):
         raise ValueError(f"dirichlet must be bool ({n},), got "
@@ -139,14 +154,36 @@ def _check(vals, mesh, dirichlet, extra):
                               or tuple(extra.shape) != (n,)):
         raise ValueError(f"extra must be {vals.dtype} ({n},), got "
                          f"{extra.dtype} {tuple(extra.shape)}")
-    tensors = [t for t in (vals, pos, nbr, dirichlet, extra) if t is not None]
+    tensors = [t for t in (vals, *tensors, dirichlet, extra) if t is not None]
     if len({t.device for t in tensors}) != 1:
-        raise ValueError("vals, the structural view, dirichlet and extra on "
+        raise ValueError("vals, the structure, dirichlet and extra on "
                          f"different devices: {[t.device for t in tensors]}")
     if vals.device.type == "cuda" and not all(t.is_contiguous()
                                               for t in tensors):
-        raise ValueError("vals, the structural view, dirichlet and extra must "
+        raise ValueError("vals, the structure, dirichlet and extra must "
                          "be contiguous")
+
+
+def _check_view(pos, n, w_max):
+    if (pos.dtype != torch.int32 or pos.dim() != 2 or pos.shape[1] != n
+            or not 1 <= pos.shape[0] <= w_max):
+        raise ValueError(f"the structural view must be int32 (W, {n}) with "
+                         f"1 <= W <= {w_max}, got {pos.dtype} "
+                         f"{tuple(pos.shape)}")
+
+
+def _check(vals, mesh, dirichlet, extra):
+    """The block-ELL operator's checks."""
+    NB, KB = mesh.bell_nbr.shape
+    B, n = mesh.bell_B, mesh.n_nodes
+    if tuple(vals.shape) != (NB, KB, B, B):
+        raise ValueError(f"vals must be (NB, KB, B, B) = {(NB, KB, B, B)}, "
+                         f"got {tuple(vals.shape)}")
+    _check_view(mesh.bell_nz_pos, n, W_MAX)
+    if mesh.bell_nbr.dtype != torch.int64:
+        raise ValueError(f"nbr must be int64, got {mesh.bell_nbr.dtype}")
+    _check_epilogue(vals, n, dirichlet, extra,
+                    (mesh.bell_nz_pos, mesh.bell_nbr))
 
 
 def _compose(product, x, dirichlet, extra):
@@ -186,54 +223,69 @@ def view_columns(nz_pos, nbr, B: int):
     return torch.where(pos >= 0, col, rows)
 
 
-def structural_matvec_plain(vals, nz_pos, nbr, x):
-    """y = A x over the structural view: gather, multiply, and sum the W
-    terms of each row in order from the first (the kernel's order; a
-    padding term is 0 * 0)."""
+def view_matvec(vals, nz_pos, nz_col, x):
+    """y = A x over a scalar-ELL view: gather, multiply, and sum the W terms
+    of each row in order from the first (the kernels' order; a padding term
+    is 0 * 0)."""
     valid = nz_pos >= 0
     v = torch.where(valid, vals.reshape(-1)[nz_pos.long().clamp_min(0)], 0.0)
-    xc = torch.where(valid, x[view_columns(nz_pos, nbr, vals.shape[-1])], 0.0)
+    xc = torch.where(valid, x[nz_col.long()], 0.0)
     return fixed_sum(v * xc, 0)
 
 
+def structural_matvec_plain(vals, nz_pos, nbr, x):
+    """y = A x over the block-ELL structural view (columns from ``nbr``)."""
+    return view_matvec(vals, nz_pos, view_columns(nz_pos, nbr, vals.shape[-1]),
+                       x)
+
+
 def bell_operator_structural(vals, mesh, x, dirichlet=None, extra=None):
-    """The kernel's plain mirror: the operator over the structural view."""
+    """The bell kernel's plain mirror: the operator over the structural
+    view."""
     return _compose(
         lambda xm: structural_matvec_plain(vals, mesh.bell_nz_pos,
                                            mesh.bell_nbr, xm),
         x, dirichlet, extra)
 
 
-# kernel launches since the last reset: _Launcher adds one per launch
-# (chip_smoke.py reads it to show the main path went through the kernel)
-launches = 0
+def ell_operator_plain(vals, mesh, x, dirichlet=None, extra=None):
+    """The ELL or BCSR operator in plain PyTorch over the stored values
+    (fem/ell.ell_matvec, fem/bcsr.bcsr_matvec): what the CPU path
+    computes."""
+    if mesh.bcsr_brow is not None:
+        return _compose(lambda xm: bcsr_matvec(vals, mesh, xm), x, dirichlet,
+                        extra)
+    return _compose(lambda xm: ell_matvec(vals, mesh.ell_cols, xm), x,
+                    dirichlet, extra)
+
+
+def ell_operator_structural(vals, mesh, x, dirichlet=None, extra=None):
+    """The ell kernel's plain mirror: the operator over the mesh's view."""
+    return _compose(lambda xm: view_matvec(vals, mesh.nz_pos, mesh.nz_col, xm),
+                    x, dirichlet, extra)
 
 
 class _Launcher:
     """One checked operator on the card: each call is a ``torch.empty`` and
-    one kernel launch.  Holds the tensors whose pointers it passes."""
+    one launch of kernel ``name``, whose arguments before x are ``args``.
+    Holds the tensors whose pointers it passes (``keep``)."""
 
-    def __init__(self, vals, mesh, dirichlet, extra):
+    def __init__(self, name, vals, n, args, keep, dirichlet, extra):
         if vals.device.type != "cuda":
-            raise ValueError(f"bell_operator: unsupported device {vals.device}")
-        if mesh.bell_B & (mesh.bell_B - 1):
-            raise ValueError(f"the kernel takes a block edge B that is a power "
-                             f"of two, got {mesh.bell_B}")
-        lib = build()["lib"]
-        self.fn = (lib.bell_spmv_f32 if vals.dtype == torch.float32
-                   else lib.bell_spmv_f64)
-        pos, nbr = mesh.bell_nz_pos, mesh.bell_nbr
-        self.keep = (vals, pos, nbr, dirichlet, extra)
-        self.n = mesh.n_nodes
+            raise ValueError(f"{name}: unsupported device {vals.device}")
+        lib = build(name)["lib"]
+        self.name = name
+        self.fn = getattr(lib, f"{name}_f32" if vals.dtype == torch.float32
+                          else f"{name}_f64")
+        self.keep = (vals, *keep, dirichlet, extra)
+        self.n = n
         self.dtype, self.device = vals.dtype, vals.device
         self.index = vals.device.index
-        self.args = (vals.data_ptr(), pos.data_ptr(), nbr.data_ptr(),
-                     nbr.shape[1], mesh.bell_B, pos.shape[0], self.n)
+        self.args = args
         self.epilogue = (None if dirichlet is None else dirichlet.data_ptr(),
                          None if extra is None else extra.data_ptr())
 
     def __call__(self, x):
-        global launches
         _check_x(x, self.n, self.dtype, self.device)
         y = torch.empty_like(x)
         # the current stream's handle, without building a torch.cuda.Stream
@@ -241,8 +293,8 @@ class _Launcher:
         err = self.fn(*self.args, x.data_ptr(), *self.epilogue, y.data_ptr(),
                       self.index, stream)
         if err != 0:
-            raise RuntimeError(f"bell_spmv launch failed: cudaError {err}")
-        launches += 1
+            raise RuntimeError(f"{self.name} launch failed: cudaError {err}")
+        launches[self.name] += 1
         return y
 
 
@@ -251,6 +303,11 @@ def _check_x(x, n, dtype, device):
             or not x.is_contiguous()):
         raise ValueError(f"x must be a contiguous {dtype} ({n},) on {device}, "
                          f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+
+
+def _cpu_operator(plain, vals, mesh, x, dirichlet, extra):
+    _check_x(x, mesh.n_nodes, vals.dtype, vals.device)
+    return plain(vals, mesh, x, dirichlet, extra)
 
 
 def bell_operator_fn(vals, mesh, dirichlet=None, extra=None):
@@ -262,16 +319,52 @@ def bell_operator_fn(vals, mesh, dirichlet=None, extra=None):
     :func:`bell_operator_plain`."""
     _check(vals, mesh, dirichlet, extra)
     if vals.device.type == "cpu":
-        return functools.partial(_cpu_operator, vals, mesh,
-                                 dirichlet=dirichlet, extra=extra)
-    return _Launcher(vals, mesh, dirichlet, extra)
-
-
-def _cpu_operator(vals, mesh, x, dirichlet, extra):
-    _check_x(x, mesh.n_nodes, vals.dtype, vals.device)
-    return bell_operator_plain(vals, mesh, x, dirichlet, extra)
+        return functools.partial(_cpu_operator, bell_operator_plain, vals,
+                                 mesh, dirichlet=dirichlet, extra=extra)
+    if mesh.bell_B & (mesh.bell_B - 1):
+        raise ValueError(f"the kernel takes a block edge B that is a power "
+                         f"of two, got {mesh.bell_B}")
+    pos, nbr = mesh.bell_nz_pos, mesh.bell_nbr
+    return _Launcher("bell_spmv", vals, mesh.n_nodes,
+                     (vals.data_ptr(), pos.data_ptr(), nbr.data_ptr(),
+                      nbr.shape[1], mesh.bell_B, pos.shape[0], mesh.n_nodes),
+                     (pos, nbr), dirichlet, extra)
 
 
 def bell_operator(vals, mesh, x, dirichlet=None, extra=None):
     """One matvec of the operator (:func:`bell_operator_fn` applied to x)."""
     return bell_operator_fn(vals, mesh, dirichlet, extra)(x)
+
+
+def ell_operator_fn(vals, mesh, dirichlet=None, extra=None):
+    """The operator's matvec ``x -> y`` for ELL values (n, K) or BCSR values
+    (nnzb, B, B) on ``mesh``, with the optional Dirichlet mask and diagonal
+    increment of :func:`bell_operator_fn`.  CUDA tensors: the
+    csrc/ell_spmv.cu kernel over the view ``mesh.nz_pos`` / ``mesh.nz_col``
+    (or an error: also for a view wider than W_MAX or values with 2**31 or
+    more entries); CPU tensors: :func:`ell_operator_plain`."""
+    n = mesh.n_nodes
+    if mesh.bcsr_brow is not None:
+        shape = (mesh.bcsr_brow.shape[0], mesh.bcsr_B, mesh.bcsr_B)
+    elif mesh.ell_cols is not None:
+        shape = tuple(mesh.ell_cols.shape)
+    else:
+        raise ValueError("mesh has neither an ELL nor a BCSR structure")
+    if tuple(vals.shape) != shape:
+        raise ValueError(f"vals must be {shape}, got {tuple(vals.shape)}")
+    pos, col = mesh.nz_pos, mesh.nz_col
+    _check_epilogue(vals, n, dirichlet, extra, (pos, col))
+    if vals.device.type == "cpu":
+        return functools.partial(_cpu_operator, ell_operator_plain, vals,
+                                 mesh, dirichlet=dirichlet, extra=extra)
+    _check_view(pos, n, W_MAX)
+    if col.dtype != torch.int32 or col.shape != pos.shape:
+        raise ValueError(f"the view's columns must be int32 {tuple(pos.shape)}"
+                         f", got {col.dtype} {tuple(col.shape)}")
+    if vals.numel() >= 2 ** 31:
+        raise ValueError(f"vals has {vals.numel()} >= 2**31 entries: its "
+                         "positions do not fit the kernel's int32")
+    return _Launcher("ell_spmv", vals, n,
+                     (vals.data_ptr(), pos.data_ptr(), col.data_ptr(),
+                      pos.shape[0], n),
+                     (pos, col), dirichlet, extra)

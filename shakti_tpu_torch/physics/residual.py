@@ -1,7 +1,6 @@
 r"""Weak-form residual of the effective-pressure equation on torch tensors.
 
-Port of shakti_tpu/physics/residual.py (block-ELL operator branches).  The
-weak form:
+Port of shakti_tpu/physics/residual.py.  The weak form:
 
     F_i = \int [ -q_w(N) . grad(phi_i)
                  + ( (1/rho_i - 1/rho_w) m(N) - C(N)
@@ -20,7 +19,9 @@ from typing import Any
 import torch
 import torch.autograd.forward_ad as fwAD
 
+from shakti_tpu_torch.fem import bcsr as bcsrm
 from shakti_tpu_torch.fem import bell as bellm
+from shakti_tpu_torch.fem import ell as ellm
 from shakti_tpu_torch.fem import ops
 from shakti_tpu_torch.fem.ops import fixed_sum
 from shakti_tpu_torch.fem.p1 import quadrature
@@ -147,21 +148,64 @@ def element_jacobian(N, pre: StepPre, mesh, params: PhysicalParams):
         return fwAD.unpack_dual(F).tangent
 
 
+def jacobian_diag(J_c, mesh):
+    """Assembled Jacobian diagonal from element blocks (for Jacobi PC)."""
+    return ops.scatter_add_cells(mesh, torch.diagonal(J_c, dim1=1, dim2=2))
+
+
+def make_matvec(J_c, mesh, dirichlet, extra=None):
+    """Matrix-free action of A = -J with symmetric Dirichlet elimination
+    (the 'cells' operator), plus ``extra * x`` when ``extra`` is given: a
+    corner gather, the element products and the incidence-gather sum."""
+    def matvec(x):
+        xc = torch.where(dirichlet, 0.0, x)[mesh.cells]         # (c, 3)
+        yc = fixed_sum(J_c * xc[:, None, :], 2)
+        y = torch.where(dirichlet, x, -ops.scatter_add_cells(mesh, yc))
+        return y if extra is None else y + extra * x
+    return matvec
+
+
+def has_values(mesh) -> bool:
+    """Does the mesh carry an assembled-operator format (bcsr, bell or
+    ell), rather than the matrix-free 'cells' operator?"""
+    return (mesh.bcsr_brow is not None or mesh.bell_nbr is not None
+            or mesh.ell_cols is not None)
+
+
 def operator_values_shape(mesh):
-    """Shape of the folded block-ELL values (seeds the lag carry)."""
-    NB, KB = mesh.bell_nbr.shape
-    return (NB, KB, mesh.bell_B, mesh.bell_B)
+    """Shape of the folded row-storage values in the mesh's operator format
+    (seeds the lag carry); raises for the matrix-free operator."""
+    if mesh.bcsr_brow is not None:
+        return (mesh.bcsr_brow.shape[0], mesh.bcsr_B, mesh.bcsr_B)
+    if mesh.bell_nbr is not None:
+        NB, KB = mesh.bell_nbr.shape
+        return (NB, KB, mesh.bell_B, mesh.bell_B)
+    if mesh.ell_cols is not None:
+        return tuple(mesh.ell_cols.shape)
+    raise ValueError("mesh has no foldable operator structure")
 
 
 def fold_operator_values(J_c, mesh):
-    """Element blocks -> block-ELL values of A = -J (the small element
+    """Element blocks -> row-storage values of A = -J in the mesh's format,
+    in the JAX package's priority bcsr > bell > ell (the small element
     blocks are negated, not the folded values)."""
-    return bellm.bell_from_elements(-J_c, mesh)
+    nJ = -J_c
+    if mesh.bcsr_brow is not None:
+        return bcsrm.bcsr_from_elements(nJ, mesh)
+    if mesh.bell_nbr is not None:
+        return bellm.bell_from_elements(nJ, mesh)
+    if mesh.ell_cols is not None:
+        return ellm.ell_from_elements(nJ, mesh)
+    raise ValueError("mesh has no foldable operator structure")
 
 
 def operator_diag_from_values(vals, mesh):
     """Assembled diagonal of A from the folded values."""
-    return bellm.bell_diag(vals, mesh.bell_diag_pos)
+    if mesh.bcsr_brow is not None:
+        return bcsrm.bcsr_diag(vals, mesh.bcsr_diag_blk, mesh.bcsr_diag_off)
+    if mesh.bell_nbr is not None:
+        return bellm.bell_diag(vals, mesh.bell_diag_pos)
+    return ellm.ell_diag(vals, mesh.ell_diag_slot)
 
 
 def operator_from_values(vals, mesh, dirichlet, extra=None):
@@ -169,5 +213,18 @@ def operator_from_values(vals, mesh, dirichlet, extra=None):
     inputs are zeroed and constrained rows act as the identity), plus
     ``extra * x`` when ``extra`` is given (the diagonal floor).  Checked
     once here; on the card each matvec is one kernel launch
-    (ops/spmv_cuda.py)."""
-    return spmv.bell_operator_fn(vals, mesh, dirichlet, extra)
+    (ops/spmv_cuda.py: bell_spmv for block-ELL, ell_spmv for BCSR and
+    ELL)."""
+    if mesh.bcsr_brow is None and mesh.bell_nbr is not None:
+        return spmv.bell_operator_fn(vals, mesh, dirichlet, extra)
+    return spmv.ell_operator_fn(vals, mesh, dirichlet, extra)
+
+
+def make_operator(J_c, mesh, dirichlet):
+    """(matvec, diag) for A = -J with Dirichlet elimination: folded into the
+    mesh's format when it has one, matrix-free otherwise."""
+    if has_values(mesh):
+        vals = fold_operator_values(J_c, mesh)
+        return (operator_from_values(vals, mesh, dirichlet),
+                operator_diag_from_values(vals, mesh))
+    return make_matvec(J_c, mesh, dirichlet), -jacobian_diag(J_c, mesh)

@@ -1,9 +1,8 @@
-"""Preconditioned conjugate gradients on torch tensors.
+"""Preconditioned Krylov solvers on torch tensors: CG and BiCGStab.
 
-Port of shakti_tpu/solve/krylov.py:pcg.  The ``lax.while_loop`` becomes a
+Port of shakti_tpu/solve/krylov.py.  Each ``lax.while_loop`` becomes a
 Python loop whose ``norm(r) > tol`` test is one host sync per iteration
-(ROADMAP kernel item K8 moves the loop onto the device).  ``bicgstab`` is
-not ported yet (ROADMAP).
+(ROADMAP kernel item K8 moves the loop onto the device).
 """
 
 from __future__ import annotations
@@ -26,14 +25,7 @@ def pcg(matvec, b, minv=None, x0=None, *, rtol=1e-8, atol=0.0, maxiter=1000):
     or None.  Returns (x, info) with info = dict(iters, resnorm, converged)
     as Python numbers."""
     x = torch.zeros_like(b) if x0 is None else x0
-    if minv is None:
-        def apply_pc(r):
-            return r
-    elif callable(minv):
-        apply_pc = minv
-    else:
-        def apply_pc(r):
-            return minv * r
+    apply_pc = _preconditioner(minv)
     tol = max(rtol * float(norm(b)), float(atol))
     r = b - matvec(x)
     z = apply_pc(r)
@@ -56,12 +48,54 @@ def pcg(matvec, b, minv=None, x0=None, *, rtol=1e-8, atol=0.0, maxiter=1000):
     return x, {"iters": k, "resnorm": resnorm, "converged": resnorm <= tol}
 
 
-SOLVERS = {"cg": pcg}
+def bicgstab(matvec, b, minv=None, x0=None, *, rtol=1e-8, atol=0.0,
+             maxiter=1000):
+    """Right-preconditioned BiCGStab for A x = b (``minv`` as in
+    :func:`pcg`).  Returns (x, info) like :func:`pcg`."""
+    x = torch.zeros_like(b) if x0 is None else x0
+    apply_pc = _preconditioner(minv)
+    tol = max(rtol * float(norm(b)), float(atol))
+    r = b - matvec(x)
+    rhat = r
+    p = v = torch.zeros_like(b)
+    one = torch.ones((), dtype=b.dtype, device=b.device)
+    rho = alpha = omega = one
+    k = 0
+    while float(norm(r)) > tol and k < maxiter:
+        rho_new = dot(rhat, r)
+        beta = (rho_new / torch.where(rho == 0, 1.0, rho)) * (
+            alpha / torch.where(omega == 0, 1.0, omega))
+        p = r + beta * (p - omega * v)
+        phat = apply_pc(p)
+        v = matvec(phat)
+        denom = dot(rhat, v)
+        alpha = rho_new / torch.where(denom == 0, 1.0, denom)
+        s = r - alpha * v
+        shat = apply_pc(s)
+        t = matvec(shat)
+        tt = dot(t, t)
+        omega = dot(t, s) / torch.where(tt == 0, 1.0, tt)
+        x = x + alpha * phat + omega * shat
+        r = s - omega * t
+        rho = rho_new
+        k += 1
+    resnorm = float(norm(r))
+    return x, {"iters": k, "resnorm": resnorm, "converged": resnorm <= tol}
+
+
+def _preconditioner(minv):
+    if minv is None:
+        return lambda r: r
+    if callable(minv):
+        return minv
+    return lambda r: minv * r
+
+
+SOLVERS = {"cg": pcg, "bicgstab": bicgstab}
 
 
 def get_solver(name: str):
     if name not in SOLVERS:
-        raise NotImplementedError(
-            f"Krylov solver {name!r}: the port has 'cg' only so far; "
-            "bicgstab is ROADMAP, still to port, item 5")
+        raise ValueError(f"Krylov solver must be one of {sorted(SOLVERS)}, "
+                         f"got {name!r}")
     return SOLVERS[name]

@@ -26,9 +26,9 @@ from shakti_tpu_torch.solve import precond as pc
 class NewtonConfig:
     """Solver configuration: the fields and defaults of
     shakti_tpu.solve.newton.NewtonConfig (see there for each knob's
-    rationale).  The mg_* fields, krylov='bicgstab', precond='mg' and
-    differentiable=True are accepted for compatibility but not ported yet;
-    using them raises NotImplementedError."""
+    rationale).  The mg_* fields, precond='mg' and differentiable=True are
+    accepted for compatibility but not ported yet; using them raises
+    NotImplementedError."""
 
     rtol: float = 1e-9
     atol: float = 1e-10
@@ -85,7 +85,9 @@ def diag_floor_extra(a_diag, dirichlet, mesh, rel):
 
 def zero_lag(mesh, dtype, cfg: NewtonConfig):
     """Invalid-but-shape-correct lag carry for State.lag_op:
-    (ok, age, vals, a_diag, A_inv, floor, floor_age) with ok=False."""
+    (ok, age, vals, a_diag, A_inv, floor, floor_age) with ok=False, in the
+    mesh's operator format (raises for the matrix-free operator, which has
+    no values to carry)."""
     dev = mesh.nodes.device
     vals = torch.zeros(res.operator_values_shape(mesh), dtype=dtype, device=dev)
     a_diag = torch.zeros(mesh.n_nodes, dtype=dtype, device=dev)
@@ -102,11 +104,11 @@ def check_config(cfg: NewtonConfig):
     if cfg.precond not in ("two_level", "jacobi"):
         raise NotImplementedError(
             f"precond={cfg.precond!r}: the multilevel preconditioner is "
-            "not ported yet (ROADMAP, still to port, item 8)")
+            "not ported yet (ROADMAP, still to port, item 3)")
     if cfg.differentiable:
         raise NotImplementedError(
             "differentiable=True: the implicit-function adjoint is not "
-            "ported yet (ROADMAP, still to port, item 11)")
+            "ported yet (ROADMAP, still to port, item 6)")
 
 
 def newton_solve(N_init, pre, mesh, dirichlet, dirichlet_value, params,
@@ -163,8 +165,13 @@ def newton_solve(N_init, pre, mesh, dirichlet, dirichlet_value, params,
         J_c = res.element_jacobian(N, pre, mesh, params)
         vals = res.fold_operator_values(J_c, mesh)
         a_diag = res.operator_diag_from_values(vals, mesh)
-        A_inv = (pc.coarse_from_values(vals, mesh, dirichlet, cfg.coarse_block)
-                 if use_two_level else None)
+        A_inv = None
+        if use_two_level:
+            A_inv = (pc.coarse_from_values(vals, mesh, dirichlet,
+                                           cfg.coarse_block)
+                     if pc.vals_coarse_ok(mesh, cfg.coarse_block)
+                     else pc.coarse_inverse(J_c, mesh, dirichlet,
+                                            cfg.coarse_block))
         return (True, 0, vals, a_diag, A_inv, floor_b, floor_age_this)
 
     s = dict(N=N0, r=r0, rnorm=rnorm0, N_best=N0, rn_best=rnorm0, stall=0,
@@ -177,6 +184,7 @@ def newton_solve(N_init, pre, mesh, dirichlet, dirichlet_value, params,
 
     def iterate(reuse_op: bool):
         N, rnorm = s["N"], s["rnorm"]
+        J_c = vals = None
         if reuse_op:
             # iteration 0 under cfg.lag_operator: the carried operator
             _, _, vals, a_diag, A_inv, _, _ = s["op"]
@@ -185,12 +193,18 @@ def newton_solve(N_init, pre, mesh, dirichlet, dirichlet_value, params,
             s["op"] = build_op(N)
             _, _, vals, a_diag, A_inv, _, _ = s["op"]
         else:
-            vals = res.fold_operator_values(
-                res.element_jacobian(N, pre, mesh, params), mesh)
-            a_diag = res.operator_diag_from_values(vals, mesh)
+            J_c = res.element_jacobian(N, pre, mesh, params)
+            if res.has_values(mesh):
+                vals = res.fold_operator_values(J_c, mesh)
+                a_diag = res.operator_diag_from_values(vals, mesh)
+            else:
+                a_diag = -res.jacobian_diag(J_c, mesh)
         # regularize degenerate (clamped-sheet) rows: see diag_floor_rel
         extra = diag_floor_extra(a_diag, dirichlet, mesh, cfg.diag_floor_rel)
-        matvec = res.operator_from_values(vals, mesh, dirichlet, extra)
+        if vals is not None:
+            matvec = res.operator_from_values(vals, mesh, dirichlet, extra)
+        else:
+            matvec = res.make_matvec(J_c, mesh, dirichlet, extra)
         a_diag = a_diag + extra
         if lag_on:
             minv = (pc.two_level_from_inverse(A_inv, a_diag, dirichlet,
@@ -199,7 +213,7 @@ def newton_solve(N_init, pre, mesh, dirichlet, dirichlet_value, params,
                     else pc.make_jacobi(a_diag, dirichlet, tiny))
         else:
             minv = pc.make_preconditioner(cfg.precond, mesh, dirichlet, a_diag,
-                                          cfg.coarse_block, vals=vals)
+                                          cfg.coarse_block, vals=vals, J_c=J_c)
         dN, lin_info = lin_solve(matvec, s["r"], minv, rtol=cfg.lin_rtol,
                                  atol=0.1 * atol_eff, maxiter=cfg.lin_maxiter)
         a = cfg.relaxation

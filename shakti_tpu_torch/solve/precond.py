@@ -1,10 +1,14 @@
 """Preconditioners for the Newton linear solves: Jacobi and the additive
 two-level (Jacobi + Galerkin coarse correction over contiguous aggregates).
 
-Port of shakti_tpu/solve/precond.py for the block-ELL operator.  The coarse
-operator is rebuilt from the folded block values; its aggregate sum is a
-deterministic gather (:func:`coarse_plan`), not an atomic scatter.  The
-multilevel preconditioner ('mg') is not ported yet (ROADMAP).
+Port of shakti_tpu/solve/precond.py.  The coarse operator is rebuilt from
+the folded values when the mesh's format tiles the aggregates
+(:func:`coarse_from_values`: always for ELL, for the block formats when the
+aggregate is a multiple of the block edge or divides it), else from the
+element blocks (:func:`coarse_inverse`, also the matrix-free operator's).
+Every aggregate sum is a deterministic gather over a host-built plan,
+cached per (structure, block), not an atomic scatter.  The multilevel
+preconditioner ('mg') is not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -14,7 +18,7 @@ import weakref
 import numpy as np
 import torch
 
-from shakti_tpu_torch.fem.bell import gather_plan, plan_sum
+from shakti_tpu_torch.fem.ops import gather_plan, plan_sum
 
 
 def make_jacobi(a_diag, dirichlet, tiny):
@@ -31,11 +35,25 @@ def _regularized_inverse(A_c, m, dtype, tiny):
     return torch.linalg.inv(A_c)
 
 
+def _block_edge(mesh):
+    """The block edge of the mesh's block format (bcsr before bell, as the
+    fold), or None for ELL and the matrix-free operator."""
+    if mesh.bcsr_brow is not None:
+        return int(mesh.bcsr_B)
+    if mesh.bell_nbr is not None:
+        return int(mesh.bell_B)
+    return None
+
+
 def vals_coarse_ok(mesh, block: int) -> bool:
-    """Do the block-ELL blocks tile the coarse aggregates exactly (the
-    aggregate a multiple of the block edge, or dividing it)?"""
-    B = int(mesh.bell_B)
-    return block % B == 0 or B % block == 0
+    """Can :func:`coarse_from_values` build the coarse operator from the
+    folded values?  Scalar ELL always; the block formats when their blocks
+    tile the aggregates exactly (the aggregate a multiple of the block
+    edge, or dividing it); the matrix-free operator never."""
+    B = _block_edge(mesh)
+    if B is not None:
+        return block % B == 0 or B % block == 0
+    return mesh.ell_cols is not None
 
 
 def _tile_ids(rb, cb, B: int, block: int, m: int):
@@ -55,66 +73,116 @@ def _tile_ids(rb, cb, B: int, block: int, m: int):
     return np.minimum(ar, m - 1).reshape(-1), np.minimum(ac, m - 1).reshape(-1)
 
 
-def coarse_plan(nbr: np.ndarray, B: int, block: int, n: int):
-    """Host-side gather plan summing the (NB*KB [*sb*sb]) masked tile sums
-    of :func:`coarse_from_values` into the flat (m*m,) coarse operator."""
-    nbr = np.asarray(nbr, np.int64)
-    NB, KB = nbr.shape
+def coarse_plan(rb, cb, B: int, block: int, n: int):
+    """Host-side gather plan summing the masked whole-block or sub-tile sums
+    of :func:`coarse_from_values` (blocks at block-row/col ids rb/cb) into
+    the flat (m*m,) coarse operator."""
     m = -(-n // block)
-    rb = np.repeat(np.arange(NB, dtype=np.int64), KB)
-    ar, ac = _tile_ids(rb, nbr.reshape(-1), B, block, m)
+    ar, ac = _tile_ids(np.asarray(rb, np.int64), np.asarray(cb, np.int64), B,
+                       block, m)
     return gather_plan(ar * m + ac)
 
 
-# (id(mesh.bell_nbr), block, n) -> the plan on nbr's device; an entry is
-# dropped when its nbr tensor is freed, so an id is never reused stale
+def _host_plan(mesh, block: int, elements: bool):
+    """The gather plan of a coarse build's aggregate sum: over the 9c
+    element entries (``elements``, :func:`coarse_inverse`), or over the
+    values :func:`coarse_from_values` sums: per stored block or sub-tile
+    (block formats), per (row, slot) entry (ELL)."""
+    n = mesh.n_nodes
+    m = -(-n // block)
+    if elements:
+        agg = mesh.cells.cpu().numpy() // block
+        return gather_plan((agg[:, :, None] * m + agg[:, None, :]).reshape(-1))
+    if mesh.bcsr_brow is not None:
+        return coarse_plan(mesh.bcsr_brow.cpu().numpy(),
+                           mesh.bcsr_bcol.cpu().numpy(), mesh.bcsr_B, block, n)
+    if mesh.bell_nbr is not None:
+        nbr = mesh.bell_nbr.cpu().numpy()
+        NB, KB = nbr.shape
+        return coarse_plan(np.repeat(np.arange(NB), KB), nbr.reshape(-1),
+                           mesh.bell_B, block, n)
+    rows = np.arange(n)[:, None] // block
+    return gather_plan((rows * m + mesh.ell_cols.cpu().numpy() // block)
+                       .reshape(-1))
+
+
+# (id(structure), block, n) -> the plan on the structure's device (the
+# structure: the mesh's cells for the element path, else its format's index
+# table); an entry is dropped when its structure tensor is freed, so an id
+# is never reused stale
 _PLANS: dict = {}
 
 
-def _device_coarse_plan(mesh, block: int):
-    """:func:`coarse_plan` for this mesh's block structure, built on the
-    host once per (nbr, block) and kept on the operator's device."""
-    nbr = mesh.bell_nbr
-    key = (id(nbr), block, mesh.n_nodes)
+def _device_coarse_plan(mesh, block: int, elements: bool = False):
+    """The coarse gather plan for this mesh and aggregate size, built on the
+    host once per (structure, block) and kept on the mesh's device.
+    ``elements``: the element path's plan (:func:`coarse_inverse`)."""
+    owner = (mesh.cells if elements else mesh.bcsr_brow
+             if mesh.bcsr_brow is not None else mesh.bell_nbr
+             if mesh.bell_nbr is not None else mesh.ell_cols)
+    key = (id(owner), block, mesh.n_nodes)
     plan = _PLANS.get(key)
     if plan is None:
-        slots, idx = coarse_plan(nbr.cpu().numpy(), int(mesh.bell_B), block,
-                                 mesh.n_nodes)
-        plan = (torch.as_tensor(slots, device=nbr.device),
-                torch.as_tensor(idx, device=nbr.device))
+        slots, idx = _host_plan(mesh, block, elements)
+        plan = (torch.as_tensor(slots, device=owner.device),
+                torch.as_tensor(idx, device=owner.device))
         _PLANS[key] = plan
-        weakref.finalize(nbr, _PLANS.pop, key, None)
+        weakref.finalize(owner, _PLANS.pop, key, None)
     return plan
 
 
+def coarse_inverse(J_c, mesh, dirichlet, block: int = 64):
+    """Inverse of the Galerkin coarse operator A_c = P^T (-J)|_free P from
+    the element blocks: the free-masked 9c element entries summed by
+    (row aggregate, column aggregate).  For the matrix-free operator, and
+    for block formats whose blocks do not tile the aggregates."""
+    n = mesh.n_nodes
+    m = -(-n // block)
+    dtype = J_c.dtype
+    free = (~dirichlet).to(dtype)
+    wc = free[mesh.cells]                                        # (c, 3)
+    flat = -J_c * (wc[:, :, None] * wc[:, None, :])
+    slots, idx = _device_coarse_plan(mesh, block, elements=True)
+    A_c = plan_sum(flat, slots, idx, m * m).reshape(m, m)
+    return _regularized_inverse(A_c, m, dtype, torch.finfo(dtype).tiny)
+
+
 def coarse_from_values(vals, mesh, dirichlet, block: int = 64):
-    """Inverse of the Galerkin coarse operator A_c = P^T A|_free P from the
-    folded block-ELL values: A_c[I, J] sums the free-masked entries with
-    row aggregate I and column aggregate J."""
+    """Inverse of the Galerkin coarse operator from the folded values:
+    A_c[I, J] sums the free-masked entries with row aggregate I and column
+    aggregate J (the same sum as :func:`coarse_inverse`, grouped per stored
+    entry first).  Needs :func:`vals_coarse_ok`."""
     if not vals_coarse_ok(mesh, block):
-        raise NotImplementedError(
-            f"coarse_block={block} neither divides nor is a multiple of the "
-            f"block edge {mesh.bell_B}; the element-scatter coarse build is "
-            "not ported yet (ROADMAP, still to port, item 1)")
+        raise ValueError(f"coarse_block={block} does not tile the mesh's "
+                         "operator blocks; use coarse_inverse")
     n = mesh.n_nodes
     m = -(-n // block)
     dtype = vals.dtype
-    tiny = torch.finfo(dtype).tiny
-    B = int(mesh.bell_B)
-    NB, KB = mesh.bell_nbr.shape
     free = (~dirichlet).to(dtype)
-    freep = torch.nn.functional.pad(free, (0, NB * B - n)).reshape(NB, B)
-    fc = freep[mesh.bell_nbr]                                    # (NB, KB, B)
-    masked = (vals * freep[:, None, :, None]
-              * fc[:, :, None, :]).reshape(NB * KB, B, B)
-    if block % B == 0:
-        s = masked.sum(dim=(1, 2))
+    B = _block_edge(mesh)
+    if B is None:                                           # scalar ELL
+        s = vals * free[:, None] * free[mesh.ell_cols]
     else:
-        sb = B // block
-        s = masked.reshape(NB * KB, sb, block, sb, block).sum(dim=(2, 4))
+        if mesh.bcsr_brow is not None:
+            NB = int(mesh.bcsr_NB)
+            freep = torch.nn.functional.pad(free, (0, NB * B - n)).reshape(NB, B)
+            masked = (vals * freep[mesh.bcsr_brow][:, :, None]
+                      * freep[mesh.bcsr_bcol][:, None, :])
+        else:
+            NB, KB = mesh.bell_nbr.shape
+            freep = torch.nn.functional.pad(free, (0, NB * B - n)).reshape(NB, B)
+            fc = freep[mesh.bell_nbr]                            # (NB, KB, B)
+            masked = (vals * freep[:, None, :, None]
+                      * fc[:, :, None, :]).reshape(NB * KB, B, B)
+        K = masked.shape[0]
+        if block % B == 0:
+            s = masked.sum(dim=(1, 2))
+        else:
+            sb = B // block
+            s = masked.reshape(K, sb, block, sb, block).sum(dim=(2, 4))
     slots, idx = _device_coarse_plan(mesh, block)
     A_c = plan_sum(s, slots, idx, m * m).reshape(m, m)
-    return _regularized_inverse(A_c, m, dtype, tiny)
+    return _regularized_inverse(A_c, m, dtype, torch.finfo(dtype).tiny)
 
 
 def two_level_from_inverse(A_inv, a_diag, dirichlet, block: int, n: int):
@@ -136,15 +204,19 @@ def two_level_from_inverse(A_inv, a_diag, dirichlet, block: int, n: int):
 
 
 def make_preconditioner(name: str, mesh, dirichlet, a_diag,
-                        coarse_block: int = 64, *, vals=None):
+                        coarse_block: int = 64, *, vals=None, J_c=None):
     """'jacobi', or the additive 'two_level' for A = -J with its coarse
-    operator built from the folded values."""
+    operator built from the folded ``vals`` where they tile the aggregates,
+    else from the element blocks ``J_c``."""
     if name == "two_level":
-        A_inv = coarse_from_values(vals, mesh, dirichlet, coarse_block)
+        if vals is not None and vals_coarse_ok(mesh, coarse_block):
+            A_inv = coarse_from_values(vals, mesh, dirichlet, coarse_block)
+        else:
+            A_inv = coarse_inverse(J_c, mesh, dirichlet, coarse_block)
         return two_level_from_inverse(A_inv, a_diag, dirichlet, coarse_block,
                                       mesh.n_nodes)
     if name == "jacobi":
         return make_jacobi(a_diag, dirichlet, torch.finfo(a_diag.dtype).tiny)
     raise NotImplementedError(
         f"preconditioner {name!r}: the multilevel V-cycle ('mg') is not "
-        "ported yet (ROADMAP, still to port, item 8)")
+        "ported yet (ROADMAP, still to port, item 3)")

@@ -96,6 +96,9 @@ def test_cellnodal_avg_dead_slot_guard():
 
 
 def test_build_mesh_rejects_other_formats():
+    """The four formats build; any other name raises."""
     nodes, cells = rectangle_mesh(3, 3, 1.0, 1.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbuild(nodes, cells, operator="ell")
+    for op in ("bell", "ell", "bcsr", "cells"):
+        tbuild(nodes, cells, operator=op, bell_block=8)
+    with pytest.raises(ValueError, match="operator must be one of"):
+        tbuild(nodes, cells, operator="csr")

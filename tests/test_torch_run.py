@@ -54,8 +54,8 @@ def test_cli_writes_the_jax_results_protocol(tmp_path, capsys):
     assert tmain([_wrapper(tmp_path / "wt.py", "torch", tdir), "--device",
                   "cpu", "--quiet"]) == 0
     jfiles, tfiles = set(os.listdir(jdir)), set(os.listdir(tdir))
-    # checkpoints are not ported yet (ROADMAP); everything else is written
-    assert tfiles == jfiles - {"checkpoint.npz"}
+    assert tfiles == jfiles
+    assert "checkpoint.npz" in tfiles
     for k in ("t", "nodes_x", "nodes_y"):
         np.testing.assert_array_equal(np.load(tdir / f"{k}.npy"),
                                       np.load(jdir / f"{k}.npy"))
@@ -99,23 +99,22 @@ def test_cuda_request_without_gpu_raises(monkeypatch, tmp_path):
     assert not (tmp_path / "r").exists()
 
 
-@pytest.mark.parametrize("what", ["resume", "operator", "mg", "bicgstab"])
+@pytest.mark.parametrize("what", ["operator", "mg", "differentiable"])
 def test_unported_options_raise(what):
+    """What stays unported raises NotImplementedError naming its ROADMAP
+    item; an unknown operator name raises ValueError."""
     import dataclasses
     md = tslab.initialize(nx=4, ny=4, days=1.0, nt_per_day=4)
     md.device, md.dtype = "cpu", torch.float64
-    if what == "resume":
-        call = lambda: md.solve(resume=True)                  # noqa: E731
-    else:
-        if what == "operator":
-            md.operator = "ell"
-        elif what == "mg":
-            md.solver = dataclasses.replace(md.solver, precond="mg")
-        else:
-            md.solver = dataclasses.replace(md.solver, krylov="bicgstab")
-        call = lambda: md.solve(progress=False)               # noqa: E731
+    if what == "operator":
+        md.operator = "csr"
+        with pytest.raises(ValueError, match="md.operator"):
+            md.solve(progress=False)
+        return
+    md.solver = dataclasses.replace(md.solver, **(
+        {"precond": "mg"} if what == "mg" else {"differentiable": True}))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        call()
+        md.solve(progress=False)
 
 
 def test_port_never_imports_jax():

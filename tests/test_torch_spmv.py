@@ -65,11 +65,11 @@ def test_plain_matches_pallas_interpret_f32():
 def test_cpu_tensors_do_not_count_launches():
     vals, _, x, _, tm = _operator(9, 7, 32, jnp.float64)
     tv, tx = _torch(vals, x)
-    before = spmv_cuda.launches
+    before = dict(spmv_cuda.launches)
     matvec = spmv_cuda.bell_operator_fn(tv, tm)
     for _ in range(3):
         matvec(tx)
-    assert spmv_cuda.launches == before == 0
+    assert spmv_cuda.launches == before == {"bell_spmv": 0, "ell_spmv": 0}
 
 
 @pytest.mark.parametrize("bad", ["dtype", "nbr_dtype", "view_dtype", "n", "B",
@@ -112,6 +112,20 @@ def test_failed_build_raises_with_compiler_output(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="(?s)exit 2.*error: boom"):
         spmv_cuda.build.__wrapped__()
     assert not list((tmp_path / "build").glob("*.so"))
+
+
+def test_each_kernel_builds_from_its_own_source(monkeypatch, tmp_path):
+    """One nvcc per source: ell_spmv builds csrc/ell_spmv.cu into its own
+    library (a failed build names that source)."""
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\necho \"$@\" >&2\nexit 3\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(spmv_cuda, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(spmv_cuda, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="(?s)ell_spmv.cu.*libell_spmv_"):
+        spmv_cuda.build.__wrapped__("ell_spmv")
+    assert set(spmv_cuda.KERNELS) == {"bell_spmv", "ell_spmv"}
+    assert spmv_cuda.launches.keys() == spmv_cuda.KERNELS.keys()
 
 
 def test_build_dir_checkout_or_user_cache(monkeypatch, tmp_path):
