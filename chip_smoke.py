@@ -39,20 +39,28 @@ Phases (any failure raises: exit code != 0 and no result line):
      (device busy share, launches and host syncs per step, device time by
      op, the kernel's launches and device time on the path), to show where
      a steady step's time goes;
-  7. ell_spmv vs plain: the scalar-ELL/block-CSR operator kernel at the
-     bench mesh in ELL and in BCSR (B 32), at phase 8's 1,002,001-node BCSR
-     mesh and a ragged n = 169 case, float32 and float64, with and without
-     the epilogue: bitwise equal to its mirror and between two launches,
-     within phase 3's tolerances of the plain twin; device time per launch
-     (profiler, median of 50), the bytes bound and a torch sparse CSR mv of
+  7. ell_spmv vs plain: the scalar-ELL/block-CSR operator kernel over the
+     structural values (W, n) at the bench mesh in ELL and in BCSR (B 32),
+     at phase 8's 1,002,001-node BCSR mesh and a ragged n = 169 case in
+     both, float32 and float64, with and without the epilogue: bitwise
+     equal to its plain version (its mirror: the same operations in the
+     same order) and between two launches, within phase 3's tolerances of
+     the dense plain product (fem/ell.to_dense, then the JAX-layout
+     matvec); the structural fold scattered by to_dense equals the dense
+     fold bit for bit; device time per launch (profiler, median of 50),
+     the bytes bound (one value and one 4-byte column per structural
+     nonzero, 4 bytes per row, the vectors) and a torch sparse CSR mv of
      the same entries;
   8. large mesh: scripts/scale_bench.py's configuration on the port
      (rectangle_mesh(1000, 1000, 2e6, 2e6, jitter 0.25): 1,002,001 nodes,
      2M triangles, f32, two-level, no lag), "auto" -> block-CSR B 32,
      coarse block 1024, 24 steps through api/run.solve with nt_save 12:
      every step converged, fields finite, ell_spmv launched and no plain
-     twin called; ms/step of the second window, counts, peak memory and
-     the host time of freeze;
+     version called, every fold the structural (W, n) (never the
+     nnzb * B * B blocks); ms/step of the second window, counts, peak
+     memory and the host time of freeze; then three more steps under
+     torch.profiler (device busy share, launches and host syncs per step,
+     device time by op);
   9. formats agree: the bench model in float64 for 4 hourly steps under
      bell, ell, bcsr (B 32) and cells: all converge, final N and b in user
      order within 1e-7 of scale of bell's; Newton and CG counts per format;
@@ -236,13 +244,14 @@ def operator_inputs(mesh, dirichlet, rng):
 
 
 def wrappers(kernel):
-    """(operator_fn, plain twin, mirror) of kernel 'bell_spmv' or
-    'ell_spmv' (ops/spmv_cuda.py)."""
+    """(operator_fn, dense plain product, mirror) of kernel 'bell_spmv' or
+    'ell_spmv' (ops/spmv_cuda.py); ell_spmv's mirror is its plain
+    version."""
     from shakti_tpu_torch.ops import spmv_cuda as sp
     if kernel == "bell_spmv":
         return (sp.bell_operator_fn, sp.bell_operator_plain,
                 sp.bell_operator_structural)
-    return sp.ell_operator_fn, sp.ell_operator_plain, sp.ell_operator_structural
+    return sp.ell_operator_fn, sp.ell_operator_dense, sp.ell_operator_plain
 
 
 def check_operator(tag, vals, mesh, x, dirichlet, extra, rtol, atol_rel,
@@ -287,10 +296,13 @@ def bell_bound(mesh, dtype, epilogue: bool):
     return bound(nnz, mesh.n_nodes, dtype, epilogue, 4, 4)
 
 
-def ell_bound(mesh, dtype, epilogue: bool):
-    """ell_spmv: an int32 position and an int32 column per nonzero."""
+def ell_bound(mesh, dtype, epilogue: bool, index_bytes=4, row_bytes=4):
+    """ell_spmv: what any sparse format must read, one int32 column per
+    structural nonzero and 4 bytes per row (a length or an offset).  With
+    (8, 0): the bound as it was counted for the earlier kernel, a position
+    and a column per nonzero."""
     nnz = int((mesh.nz_pos >= 0).sum())
-    return bound(nnz, mesh.n_nodes, dtype, epilogue, 8, 0)
+    return bound(nnz, mesh.n_nodes, dtype, epilogue, index_bytes, row_bytes)
 
 
 def csr_of(vals, pos, col, n):
@@ -309,19 +321,27 @@ def csr_of(vals, pos, col, n):
                                    (n, n), check_invariants=True)
 
 
-def library_times(r, tag, vals, pos, col, n, x, ref, dtype, atol_rel):
+def library_times(r, tag, vals, pos, col, n, x, ref, dtype, atol_rel,
+                  flush=None):
     """One torch sparse CSR mv of the same entries: checked against the
-    kernel's product ``ref`` and timed (device and events) into ``r``."""
+    kernel's product ``ref`` and timed (device and events) into ``r``; with
+    ``flush`` (a call that empties the L2) also with a cold L2
+    (:func:`queued_ms`)."""
     try:
         A = csr_of(vals, pos, col, n)
         check_close(f"{tag} library CSR vs kernel", torch.mv(A, x), ref,
                     1e-5 if dtype == torch.float32 else 1e-12, atol_rel)
         r["library_device_ms"] = device_ms(lambda: torch.mv(A, x))
         r["library_ms"] = median_ms(lambda: torch.mv(A, x))
+        if flush is not None:
+            r["library_queued_ms_cold_l2"] = queued_ms(
+                lambda: torch.mv(A, x), between=flush)
         del A
     except RuntimeError as e:
         log(f"  library sparse CSR mv refused in {tag}: {e}")
         r["library_device_ms"] = r["library_ms"] = None
+        if flush is not None:
+            r["library_queued_ms_cold_l2"] = None
 
 
 def phase_kernel(dev, mesh, dirichlet):
@@ -480,73 +500,118 @@ def phase_main(dev, tmp):
     return res, md, st, rdir
 
 
-def phase_profile(dev, md, state):
-    """Where a steady step's time goes: one more simulated day from the
-    main path's final state, timed, then again under torch.profiler."""
+def profile_steps(dev, step, state, forcing, kernel):
+    """Where a steady step's time goes: the window ``forcing`` from
+    ``state`` once unprofiled (timed), then again under torch.profiler:
+    device busy share, launches and host syncs per step, ``kernel``'s
+    launches and mean device time, device time by op.  Measurement only."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from shakti_tpu_torch.solve.timestep import (make_forcing, make_step_fn,
-                                                 run_window)
-    mesh, static, _, cfg = md.freeze()
-    step = make_step_fn(mesh, static, md.params, cfg)
-    day = {k: v[24:48] for k, v in make_forcing(
-        md.timesteps, dtype=md.dtype, device=dev).items()}
+    from shakti_tpu_torch.solve.timestep import run_window
+    steps = int(forcing["dt"].shape[0])
     torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
-    state, d = run_window(step, state, day)
+    _, d = run_window(step, state, forcing)
     torch.cuda.synchronize(dev)
-    ms = 1e3 * (time.perf_counter() - t0) / 24
-    log(f"  steady day: {ms:.3f} ms/step, newton_mean "
+    ms = 1e3 * (time.perf_counter() - t0) / steps
+    log(f"  {steps} steady steps: {ms:.3f} ms/step, newton_mean "
         f"{d['newton_iters'].mean():.4f}, cg_mean {d['cg_iters'].mean():.4f}")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        state, d = run_window(step, state, day)
+        run_window(step, state, forcing)
         torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
     ka = prof.key_averages()
     dev_ops = [e for e in ka if e.device_type == DeviceType.CUDA]
     dev_s = sum(e.self_device_time_total for e in dev_ops) / 1e6
     count = {e.key: e.count for e in ka}
-    log(f"  profiled day: {1e3 * wall / 24:.3f} ms/step, device busy "
-        f"{100 * dev_s / wall:.1f} % ({1e3 * dev_s / 24:.3f} ms/step), "
-        f"{count.get('cudaLaunchKernel', 0) / 24:.1f} launches/step, "
-        f"{count.get('aten::_local_scalar_dense', 0) / 24:.1f} syncs/step")
+    log(f"  profiled: {1e3 * wall / steps:.3f} ms/step, device busy "
+        f"{100 * dev_s / wall:.1f} % ({1e3 * dev_s / steps:.3f} ms/step), "
+        f"{count.get('cudaLaunchKernel', 0) / steps:.1f} launches/step, "
+        f"{count.get('aten::_local_scalar_dense', 0) / steps:.1f} syncs/step")
     share = {e.key.removeprefix("aten::"): e.self_device_time_total
              for e in ka if e.device_type == DeviceType.CPU
              and e.key.startswith("aten::") and e.self_device_time_total}
-    spmv = [e for e in dev_ops if "bell_spmv" in e.key]
-    share["bell_spmv"] = sum(e.self_device_time_total for e in spmv)
+    spmv = [e for e in dev_ops if kernel in e.key]
+    share[kernel] = sum(e.self_device_time_total for e in spmv)
     n_spmv = sum(e.count for e in spmv)
-    log(f"  bell_spmv on the main path: {n_spmv / 24:.2f} launches/step, "
-        f"{share['bell_spmv'] / 1e3 / max(n_spmv, 1):.5f} ms/launch (mean)")
+    log(f"  {kernel} on the path: {n_spmv / steps:.2f} launches/step, "
+        f"{share[kernel] / 1e3 / max(n_spmv, 1):.5f} ms/launch (mean)")
     log("  kernels per step by name: " + "; ".join(
-        f"{e.key[:48]} {e.count / 24:.2f}"
+        f"{e.key[:48]} {e.count / steps:.2f}"
         for e in sorted(dev_ops, key=lambda e: -e.count)[:12]))
-    top = sorted(share.items(), key=lambda kv: -kv[1])[:10]
+    top = sorted(share.items(), key=lambda kv: -kv[1])[:12]
     log("  device time by op: " + ", ".join(
         f"{k} {100 * v / 1e6 / max(dev_s, 1e-12):.1f} %" for k, v in top))
 
 
+def phase_profile(dev, md, state):
+    """Phase 6: one more simulated day from the main path's final state."""
+    from shakti_tpu_torch.solve.timestep import make_forcing, make_step_fn
+    mesh, static, _, cfg = md.freeze()
+    step = make_step_fn(mesh, static, md.params, cfg)
+    day = {k: v[24:48] for k, v in make_forcing(
+        md.timesteps, dtype=md.dtype, device=dev).items()}
+    profile_steps(dev, step, state, day, "bell_spmv")
+
+
+def element_plan(mesh, dev):
+    """The dense fold's plan from the mesh's element -> position maps alone
+    (fem/ops.gather_plan over the JAX-layout fields, not the renumbered
+    plan fold_structural and to_dense share): (slots, idx, size) for
+    fem/ops.plan_sum."""
+    from shakti_tpu_torch.fem.bcsr import fold_keys
+    from shakti_tpu_torch.fem.ell import dense_shape
+    from shakti_tpu_torch.fem.ops import gather_plan
+    if mesh.bcsr_brow is not None:
+        keys = fold_keys(mesh.bcsr_blk.cpu().numpy(),
+                         mesh.bcsr_off.cpu().numpy(), mesh.bcsr_B)
+    else:
+        keys = mesh.ell_map.cpu().numpy()
+    slots, idx = gather_plan(keys)
+    return (torch.as_tensor(slots, device=dev), torch.as_tensor(idx, device=dev),
+            int(np.prod(dense_shape(mesh))))
+
+
 def phase_ell_kernel(dev, cases):
-    """ell_spmv against its mirror and plain twins on each (tag, mesh,
-    dirichlet) of ``cases``, f32 and f64, with and without the epilogue;
-    timed at each case whose tag does not start with 'ragged'.  Returns
-    {tag: {dtype: numbers}}."""
+    """ell_spmv against its plain version (bitwise) and the dense plain
+    product on each (tag, mesh, dirichlet) of ``cases``, f32 and f64, with
+    and without the epilogue; timed at each case whose tag does not start
+    with 'ragged'.  Returns {tag: {dtype: numbers}}."""
+    from shakti_tpu_torch.fem.ell import dense_shape, to_dense
+    from shakti_tpu_torch.fem.ops import plan_sum
     from shakti_tpu_torch.ops.spmv_cuda import (ell_operator_fn,
                                                 ell_operator_plain)
     from shakti_tpu_torch.physics.residual import fold_operator_values
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)  # > L2
     out = {}
     for i, (tag, mesh, dirichlet) in enumerate(cases):
-        W = mesh.nz_pos.shape[0]
-        nnz = int((mesh.nz_pos >= 0).sum())
-        log(f"  {tag}: n={mesh.n_nodes} W={W} nonzeros={nnz}")
+        W, n = mesh.nz_col.shape
+        valid = mesh.nz_pos >= 0
+        nnz = int(valid.sum())
+        log(f"  {tag}: n={n} W={W} nonzeros={nnz} slots={W * n}")
+        # each structural entry's flat slot in svals (-1 on padding): the
+        # positions csr_of reads the library's values from
+        slot = torch.where(valid, torch.arange(
+            W * n, device=dev).reshape(W, n), -1)
         inp = operator_inputs(mesh, dirichlet, np.random.default_rng(10 + i))
+        plan = element_plan(mesh, dev)
         out[tag] = {}
         for dtype, rtol, atol_rel in TOLS:
             dt = str(dtype).removeprefix("torch.")
             vals = fold_operator_values(inp["J"].to(dtype), mesh)
+            if tuple(vals.shape) != (W, n) or int(torch.count_nonzero(
+                    vals[~valid])):
+                raise RuntimeError(f"{tag} {dt}: the fold is not the "
+                                   f"structural (W, n): {tuple(vals.shape)}")
+            dense_fold = plan_sum(-inp["J"].to(dtype), *plan).reshape(
+                dense_shape(mesh))
+            if not bitwise_equal(to_dense(vals, mesh), dense_fold):
+                raise RuntimeError(f"{tag} {dt}: to_dense(structural fold) "
+                                   "differs from the dense fold")
+            del dense_fold
             x, extra = inp["x"].to(dtype), inp["extra"].to(dtype)
             err = {epi: check_operator(f"{tag} {dt} {epi}", vals, mesh, x, d, e,
                                        rtol, atol_rel, kernel="ell_spmv")
@@ -560,6 +625,12 @@ def phase_ell_kernel(dev, cases):
                 prod = ell_operator_fn(vals, mesh)
                 r["device_ms"] = device_ms(lambda: op(x), "ell_spmv")
                 r["device_ms_product"] = device_ms(lambda: prod(x), "ell_spmv")
+                # a cold L2, as on the path (other kernels run between two
+                # matvecs): the product alone, as the library call computes
+                r["device_ms_cold_l2"] = device_ms(lambda: op(x), "ell_spmv",
+                                                   between=flush.zero_)
+                r["queued_ms_product_cold_l2"] = queued_ms(
+                    lambda: prod(x), between=flush.zero_)
                 r["ms"] = median_ms(lambda: op(x))
                 r["plain_device_ms"] = device_ms(
                     lambda: ell_operator_plain(vals, mesh, x, dirichlet, extra))
@@ -567,17 +638,27 @@ def phase_ell_kernel(dev, cases):
                     lambda: ell_operator_plain(vals, mesh, x, dirichlet, extra))
                 r["host_us"] = host_us(lambda: op(x))
                 r["bound_ms"], r["bound_by"] = ell_bound(mesh, dtype, True)
-                library_times(r, f"{tag} {dt}", vals, mesh.nz_pos, mesh.nz_col,
-                              mesh.n_nodes, x, prod(x), dtype, atol_rel)
+                r["bound_ms_two_indices"], _ = ell_bound(mesh, dtype, True, 8, 0)
+                library_times(r, f"{tag} {dt}", vals, slot, mesh.nz_col,
+                              mesh.n_nodes, x, prod(x), dtype, atol_rel,
+                              flush=flush.zero_)
+                log(f"  {tag} {dt}: L2 flushed before each call: kernel device "
+                    f"{r['device_ms_cold_l2']:.5f} ms/launch (profiler); between"
+                    f" events less the flush, product "
+                    f"{r['queued_ms_product_cold_l2']:.5f} ms against library "
+                    f"CSR mv {r['library_queued_ms_cold_l2']} ms")
                 log(f"  {tag} {dt}: kernel device {r['device_ms']:.5f} ms/launch"
                     f" (product {r['device_ms_product']:.5f}), {r['ms']:.5f} "
-                    f"ms/call events; plain twin {r['plain_device_ms']:.5f} ms "
-                    f"device ({r['plain_ms']:.5f} events); library CSR mv "
+                    f"ms/call events; plain version {r['plain_device_ms']:.5f} "
+                    f"ms device ({r['plain_ms']:.5f} events); library CSR mv "
                     f"{r['library_device_ms']} ms device ({r['library_ms']} "
-                    f"events); bound {r['bound_ms']:.5f} ms by {r['bound_by']}")
+                    f"events); bound {r['bound_ms']:.5f} ms by {r['bound_by']}"
+                    f" (counted with two indices per nonzero, as for the "
+                    f"earlier kernel: {r['bound_ms_two_indices']:.5f})")
                 del op, prod
             out[tag][dt] = r
             del vals
+        del plan
     return out
 
 
@@ -613,14 +694,22 @@ def phase_scale(dev, md, frozen):
     synchronizations; returns the numbers and the ell_spmv launches."""
     from shakti_tpu_torch.api import run as trun
     from shakti_tpu_torch.ops import spmv_cuda
+    from shakti_tpu_torch.physics import residual
     mesh, _, _, cfg = frozen
     if (mesh.n_nodes, mesh.bcsr_B, cfg.coarse_block, cfg.lag_operator) != (
             1_002_001, 32, 1024, False):
         raise RuntimeError(f"auto at 1M nodes: B {mesh.bcsr_B}, coarse "
                            f"{cfg.coarse_block}, lag {cfg.lag_operator}")
     windows, plain_calls = [], {"ell": 0, "bell": 0}
+    fold_shapes = set()
     real_window = trun.run_window
     real_plain = spmv_cuda.ell_operator_plain, spmv_cuda.bell_operator_plain
+    real_fold = residual.fold_operator_values
+
+    def spied_fold(J_c, m):
+        vals = real_fold(J_c, m)
+        fold_shapes.add(tuple(vals.shape))
+        return vals
 
     def timed_window(step_fn, state, forcing):
         torch.cuda.synchronize(dev)
@@ -639,6 +728,7 @@ def phase_scale(dev, md, frozen):
     trun.run_window = timed_window
     spmv_cuda.ell_operator_plain = counted("ell", real_plain[0])
     spmv_cuda.bell_operator_plain = counted("bell", real_plain[1])
+    residual.fold_operator_values = spied_fold
     md.device = dev
     md.freeze = lambda device=None: frozen
     torch.cuda.reset_peak_memory_stats(dev)
@@ -649,6 +739,7 @@ def phase_scale(dev, md, frozen):
     finally:
         trun.run_window = real_window
         spmv_cuda.ell_operator_plain, spmv_cuda.bell_operator_plain = real_plain
+        residual.fold_operator_values = real_fold
         del md.freeze
     st = out["state"]
     for k in ("N", "b", "q", "melt"):
@@ -656,7 +747,13 @@ def phase_scale(dev, md, frozen):
             raise RuntimeError(f"non-finite {k} after the 1M-node run")
     if out["steps"] != 24 or launches["ell_spmv"] <= 0 or any(plain_calls.values()):
         raise RuntimeError(f"1M-node run: {out['steps']} steps, launches "
-                           f"{launches}, plain twin calls {plain_calls}")
+                           f"{launches}, plain version calls {plain_calls}")
+    # the operator is never the nnzb * B * B blocks: every fold of the run
+    # gave the structural (W, n)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    if fold_shapes != {tuple(mesh.nz_col.shape)}:
+        raise RuntimeError(f"1M-node run: folds of shapes {fold_shapes}; the "
+                           f"structural one is {tuple(mesh.nz_col.shape)}")
     wall, d = windows[1]
     res = dict(nodes=mesh.n_nodes, steps=out["steps"], launches=launches["ell_spmv"],
                ms_per_step_window2=1e3 * wall / d["newton_iters"].size,
@@ -666,8 +763,15 @@ def phase_scale(dev, md, frozen):
                newton_window2=d["newton_iters"].tolist(),
                cg_window2=d["cg_iters"].tolist(),
                ms_per_step_all=1e3 * out["wall_time"] / out["steps"],
-               peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+               peak_mem_gb=peak_gb)
     log("  1M-node run: " + json.dumps(res))
+    # where a steady step goes at this size: the run's last three steps
+    # again, from its final state
+    from shakti_tpu_torch.solve.timestep import make_forcing, make_step_fn
+    step = make_step_fn(mesh, frozen[1], md.params, cfg)
+    last = {k: v[-3:] for k, v in make_forcing(
+        md.timesteps, dtype=md.dtype, device=dev).items()}
+    profile_steps(dev, step, st, last, "ell_spmv")
     return res
 
 

@@ -162,11 +162,12 @@ def solve(md, *, resume: bool = False, progress: bool = True):
     io_on = md.results_name is not None
     rdir = str(md.results_name) if io_on else None
     start_step, row, loaded = 0, 0, None
+    mesh, static, state0, cfg = md.freeze(dev)
     if io_on:
         mesh_fp = ckpt.mesh_fingerprint(md.nodes)
         if resume:
             loaded = ckpt.load_state(rdir, dtype=md.dtype, device=dev,
-                                     fingerprint=mesh_fp)
+                                     fingerprint=mesh_fp, mesh=mesh)
         if loaded is not None:
             _, start_step, row = loaded
         else:
@@ -226,7 +227,6 @@ def solve(md, *, resume: bool = False, progress: bool = True):
             for r in log_rows:
                 f.write(",".join(str(v) for v in r) + "\n")
 
-    mesh, static, state0, cfg = md.freeze(dev)
     if loaded is None:
         state = state0
     else:
@@ -353,7 +353,7 @@ def solve(md, *, resume: bool = False, progress: bool = True):
     if io_on:
         write_histories()
         write_log()
-        ckpt.save_state(rdir, state, nt, row, fingerprint=mesh_fp)
+        ckpt.save_state(rdir, state, nt, row, fingerprint=mesh_fp, mesh=mesh)
         with open(os.path.join(rdir, "run_meta.json"), "w") as f:
             json.dump({
                 "wall_s": round(wall, 3),

@@ -1,12 +1,13 @@
 """Block-CSR operator format on torch tensors: the large-mesh path.
 
-Port of shakti_tpu/fem/bcsr.py.  Only the nonzero B x B blocks are stored:
-``vals`` (nnzb, B, B) with block-row ids ``brow`` (sorted) and block-column
-ids ``bcol``.  The element fold is a deterministic gather
-(fem/ops.gather_plan) into a zeroed array, so every value outside the
-structure stays exactly zero; on CUDA tensors the matvec reads only the
-structural entries through the scalar-ELL view (:func:`bcsr_view`,
-csrc/ell_spmv.cu).
+Port of shakti_tpu/fem/bcsr.py.  In the JAX package's layout only the
+nonzero B x B blocks are stored: ``vals`` (nnzb, B, B) with block-row ids
+``brow`` (sorted) and block-column ids ``bcol``.  :func:`bcsr_from_elements`,
+:func:`bcsr_matvec` and :func:`bcsr_diag` keep that layout, as mirrors of
+the JAX package's functions and yardsticks.  The solve path never builds
+the blocks: it keeps the structural entries alone, ``svals`` (W, n) in the
+order of :func:`bcsr_view` (fem/ell.py: fold_structural, structural_diag,
+to_dense / from_dense), which the kernel csrc/ell_spmv.cu reads.
 """
 
 from __future__ import annotations
@@ -14,8 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from shakti_tpu_torch.fem.ell import scalar_view
-from shakti_tpu_torch.fem.ops import fixed_sum, plan_sum
+from shakti_tpu_torch.fem.ell import dense_fold, scalar_view
+from shakti_tpu_torch.fem.ops import fixed_sum
 
 
 def build_bcsr(cells: np.ndarray, n_nodes: int, B: int = 128):
@@ -58,21 +59,18 @@ def bcsr_view(brow, bcol, fold_slots, n: int, B: int):
     blk, off = slots // (B * B), slots % (B * B)
     row = np.asarray(brow, np.int64)[blk] * B + off // B
     col = np.asarray(bcol, np.int64)[blk] * B + off % B
-    return scalar_view(row, slots, col, n)
+    return scalar_view(row, slots, col, n, wide=True)
 
 
 def bcsr_from_elements(J_c, mesh):
     """Fold element blocks (c, 3, 3) into (nnzb, B, B), zero outside the
     structure."""
-    nnzb, B = mesh.bcsr_brow.shape[0], mesh.bcsr_B
-    return plan_sum(J_c, mesh.bcsr_fold_slots, mesh.bcsr_fold_idx,
-                    nnzb * B * B).reshape(nnzb, B, B)
+    return dense_fold(J_c, mesh)
 
 
 def bcsr_matvec(vals, mesh, x):
     """y = A x: block-column gather, batched product, and a fixed-order sum
-    over each block row's blocks (the plain twin of csrc/ell_spmv.cu,
-    shakti_tpu/fem/bcsr.py:bcsr_matvec)."""
+    over each block row's blocks (shakti_tpu/fem/bcsr.py:bcsr_matvec)."""
     n, NB, B = mesh.n_nodes, mesh.bcsr_NB, mesh.bcsr_B
     xg = torch.nn.functional.pad(x, (0, NB * B - n)).reshape(NB, B)[mesh.bcsr_bcol]
     z = torch.einsum("kij,kj->ki", vals, xg)

@@ -118,3 +118,47 @@ def plan_sum(values, slots, idx, size: int):
     out = flat.new_zeros(size)
     out[slots] = fixed_sum(ext[idx], 1)
     return out
+
+
+def chunked_plan(keys: np.ndarray, positions: np.ndarray, sentinel: int,
+                 chunk: int = 64):
+    """Host-side plan for a deterministic segment sum whose segments are
+    long and of very different lengths (a coarse operator's aggregate
+    pairs): value ``positions[e]`` belongs to segment ``keys[e]``.
+
+    Each segment's values, in input order, are cut into chunks of at most
+    ``chunk``.  Returns (slots (U,) the distinct keys, idx1 (C, chunk) the
+    value positions of every chunk padded with ``sentinel`` (an appended
+    zero), idx2 (U, M) the chunks of every segment padded with the sentinel
+    C).  :func:`chunked_sum` applies it: two gathers and two sums whatever
+    the longest segment, where :func:`gather_plan` would pad every segment
+    to it."""
+    keys = np.asarray(keys, np.int64).reshape(-1)
+    positions = np.asarray(positions, np.int64).reshape(-1)
+    order = np.argsort(keys, kind="stable")
+    slots, start, counts = np.unique(keys[order], return_index=True,
+                                     return_counts=True)
+    rank = np.arange(keys.size) - np.repeat(start, counts)
+    nchunks = -(-counts // chunk)                       # chunks per segment
+    first = np.concatenate([[0], np.cumsum(nchunks)[:-1]]).astype(np.int64)
+    C = int(nchunks.sum())
+    idx1 = np.full((C, chunk), sentinel, np.int64)
+    idx1[np.repeat(first, counts) + rank // chunk, rank % chunk] = \
+        positions[order]
+    M = int(nchunks.max()) if nchunks.size else 0
+    idx2 = np.full((slots.size, M), C, np.int64)
+    within = np.arange(C) - np.repeat(first, nchunks)
+    idx2[np.repeat(np.arange(slots.size), nchunks), within] = np.arange(C)
+    return slots, idx1, idx2
+
+
+def chunked_sum(values, slots, idx1, idx2, size: int):
+    """out (size,) with out[slots[u]] = the sum of segment u's values of
+    :func:`chunked_plan`, zero elsewhere: each chunk summed, then each
+    segment's chunks; no atomics, the same order in every run."""
+    flat = values.reshape(-1)
+    part = torch.cat([flat, flat.new_zeros(1)])[idx1].sum(dim=1)
+    seg = torch.cat([part, part.new_zeros(1)])[idx2].sum(dim=1)
+    out = flat.new_zeros(size)
+    out[slots] = seg
+    return out

@@ -13,7 +13,13 @@ package's keys and dtypes, so either package resumes the other's:
                                                two-level coarse inverse
 
 The port's lag tuple holds Python scalars where the JAX package holds 0-d
-arrays (ok, age, floor, floor_age); they are mapped on save and load.
+arrays (ok, age, floor, floor_age); they are mapped on save and load.  For
+ELL and block-CSR the port carries the structural values (W, n)
+(fem/ell.py); ``lag_vals`` keeps the JAX package's layout ((n, K) rows,
+(nnzb, B, B) blocks): given the mesh, :func:`save_state` scatters them
+(fem/ell.to_dense) and :func:`load_state` gathers them back
+(fem/ell.from_dense).  Without the mesh both raise on such a carry (only a
+block-ELL carry, four-dimensional, is the same in file and memory).
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import zlib
 import numpy as np
 import torch
 
+from shakti_tpu_torch.fem.ell import dense_shape, from_dense, to_dense
 from shakti_tpu_torch.solve.timestep import State
 
 CHECKPOINT_FILE = "checkpoint.npz"
@@ -41,12 +48,25 @@ def _np(t):
     return t.detach().cpu().numpy()
 
 
+def _need_mesh(vals, who):
+    """Raise for lag values that are not block-ELL's (NB, KB, B, B): an ELL
+    or block-CSR carry differs between file and memory, and only the mesh
+    maps one to the other."""
+    if vals.dim() != 4:
+        raise ValueError(
+            f"{who}: an ELL or block-CSR lag carry (values of shape "
+            f"{tuple(vals.shape)}) needs mesh=; without it the file would "
+            "not hold the layout either package resumes")
+
+
 def save_state(results_dir: str, state: State, next_step: int, next_row: int,
-               fingerprint: int | None = None, include_lag: bool = True):
+               fingerprint: int | None = None, include_lag: bool = True,
+               mesh=None):
     """Write ``checkpoint.npz`` atomically.  ``include_lag=False`` omits the
     carried operator (a recomputable cache that dominates the volume): the
     run layer's rolling checkpoints leave it out, its final one keeps it, so
-    a planned resume replays bit for bit."""
+    a planned resume replays bit for bit.  ``mesh``: the state's mesh,
+    required to write an ELL or block-CSR carry in the file's layout."""
     path = os.path.join(results_dir, CHECKPOINT_FILE)
     tmp = path + ".tmp.npz"
     dtype = _np(state.N).dtype
@@ -55,6 +75,10 @@ def save_state(results_dir: str, state: State, next_step: int, next_row: int,
         extra["mesh_crc"] = np.uint32(fingerprint)
     if state.lag_op is not None and include_lag:
         ok, age, vals, a_diag, A_inv, floor, fage = state.lag_op
+        if mesh is None:
+            _need_mesh(vals, "save_state")
+        elif mesh.structural:
+            vals = to_dense(vals, mesh)
         extra.update(lag_ok=np.asarray(bool(ok)),
                      lag_age=np.asarray(int(age), np.int32),
                      lag_vals=_np(vals), lag_adiag=_np(a_diag),
@@ -72,10 +96,13 @@ def save_state(results_dir: str, state: State, next_step: int, next_row: int,
 
 
 def load_state(results_dir: str, dtype=torch.float32, device="cpu",
-               fingerprint: int | None = None):
+               fingerprint: int | None = None, mesh=None):
     """Returns (state, next_step, next_row), or None when there is no
     checkpoint.  Raises when ``fingerprint`` (of the current mesh) differs
-    from the one the checkpoint recorded."""
+    from the one the checkpoint recorded.  ``mesh``: the mesh the run
+    resumes on, required to read an ELL or block-CSR carry; one stored in
+    its layout is read into the structural values (one of another format or
+    mesh stays as stored, and the run layer reseeds it)."""
     path = os.path.join(results_dir, CHECKPOINT_FILE)
     if not os.path.exists(path):
         return None
@@ -92,7 +119,13 @@ def load_state(results_dir: str, dtype=torch.float32, device="cpu",
 
         lag_op = None
         if "lag_vals" in z.files and "lag_floor_age" in z.files:
-            lag_op = (bool(z["lag_ok"]), int(z["lag_age"]), t("lag_vals"),
+            vals = t("lag_vals")
+            if mesh is None:
+                _need_mesh(vals, "load_state")
+            elif (mesh.structural
+                  and tuple(vals.shape) == dense_shape(mesh)):
+                vals = from_dense(vals, mesh)
+            lag_op = (bool(z["lag_ok"]), int(z["lag_age"]), vals,
                       t("lag_adiag"),
                       t("lag_Ainv") if "lag_Ainv" in z.files else None,
                       float(z["lag_floor"]), int(z["lag_floor_age"]))

@@ -7,7 +7,9 @@ scalar ELL ('ell'), block-CSR ('bcsr'), or none ('cells': the matrix-free
 operator).  Index arrays are int64 (torch's indexing type); the JAX
 package's int32 ids map onto them value for value.  The deterministic fold
 plans (fem/ops.gather_plan) and the scalar-ELL views the CUDA kernels read
-are derived here, once per mesh.
+are derived here, once per mesh; for ELL and block-CSR the plan is
+renumbered to the view, so the fold writes the structural values the kernel
+reads (fem/ell.fold_structural).
 """
 
 from __future__ import annotations
@@ -52,8 +54,6 @@ class Mesh:
     ell_cols: torch.Tensor | None = None       # (n_nodes, K) neighbour ids
     ell_map: torch.Tensor | None = None        # (9c,) element -> flat slot
     ell_diag_slot: torch.Tensor | None = None  # (n_nodes,) diagonal slot
-    ell_fold_slots: torch.Tensor | None = None
-    ell_fold_idx: torch.Tensor | None = None
     # block-CSR structure (fem/bcsr.py)
     bcsr_brow: torch.Tensor | None = None      # (nnzb,) block rows (sorted)
     bcsr_bcol: torch.Tensor | None = None      # (nnzb,) block columns
@@ -63,15 +63,19 @@ class Mesh:
     bcsr_diag_off: torch.Tensor | None = None  # (n_nodes,)
     bcsr_B: int | None = None
     bcsr_NB: int | None = None
-    bcsr_fold_slots: torch.Tensor | None = None
-    bcsr_fold_idx: torch.Tensor | None = None
     # the plain matvec's fixed-order sum over each block row's blocks
     bcsr_row_slots: torch.Tensor | None = None  # (NB',) block rows
     bcsr_row_idx: torch.Tensor | None = None    # (NB', M) block ids, pad nnzb
-    # scalar-ELL view of the ELL or BCSR structural entries
-    # (fem/ell.scalar_view), what csrc/ell_spmv.cu reads: (W, n_nodes) int32
-    nz_pos: torch.Tensor | None = None  # flat positions in vals, -1 pad
-    nz_col: torch.Tensor | None = None  # columns (the row itself on pads)
+    # the ELL or BCSR structural storage (fem/ell.py): values svals
+    # (W, n_nodes) in the order of fem/ell.scalar_view
+    nz_col: torch.Tensor | None = None  # (W, n) int32 columns (pads: the row)
+    # (W, n) int64 flat positions in the JAX package's dense layout, -1 pad
+    # (to_dense / from_dense only)
+    nz_pos: torch.Tensor | None = None
+    # the fold of the 9c element entries in view order: (W * n, M), the
+    # element entries of each slot, sentinel 9c on pads
+    nz_fold_idx: torch.Tensor | None = None
+    nz_diag: torch.Tensor | None = None  # (n,) flat slot of the diagonal
 
     @property
     def n_nodes(self) -> int:
@@ -80,6 +84,13 @@ class Mesh:
     @property
     def n_cells(self) -> int:
         return self.cells.shape[0]
+
+    @property
+    def structural(self) -> bool:
+        """Does the operator store its structural entries alone (``svals``
+        (W, n), fem/ell.py)?  Block-CSR and scalar ELL do; block-ELL keeps
+        its dense blocks, the matrix-free operator stores nothing."""
+        return self.nz_col is not None
 
 
 def cell_geometry(nodes: np.ndarray, cells: np.ndarray):
@@ -127,6 +138,14 @@ def mesh_from_arrays(a: dict, *, dtype, device) -> Mesh:
     def i32(x):
         return torch.as_tensor(x, device=device)
 
+    def structural(pos, col, slots, idx, diag_pos, n_entries):
+        """The structural storage's tables from a format's view and fold
+        plan."""
+        return dict(nz_pos=i(pos), nz_col=i32(col),
+                    nz_fold_idx=i(ellm.structural_plan(pos, slots, idx,
+                                                       n_entries)),
+                    nz_diag=i(ellm.diag_slots(pos, diag_pos)))
+
     n = np.asarray(a["nodes"]).shape[0]
     kw = {}
     if a.get("bcsr_brow") is not None:
@@ -139,12 +158,14 @@ def mesh_from_arrays(a: dict, *, dtype, device) -> Mesh:
                              "(nnzb, B, B)")
         row_slots, row_idx = gather_plan(brow)
         pos, col = bcsrm.bcsr_view(brow, bcol, slots, n, B)
+        dpos = (np.asarray(a["bcsr_diag_blk"], np.int64) * (B * B)
+                + np.asarray(a["bcsr_diag_off"], np.int64))
         kw = dict(bcsr_brow=i(brow), bcsr_bcol=i(bcol), bcsr_blk=i(a["bcsr_blk"]),
                   bcsr_off=i(a["bcsr_off"]), bcsr_diag_blk=i(a["bcsr_diag_blk"]),
                   bcsr_diag_off=i(a["bcsr_diag_off"]), bcsr_B=B, bcsr_NB=NB,
-                  bcsr_fold_slots=i(slots), bcsr_fold_idx=i(idx),
                   bcsr_row_slots=i(row_slots), bcsr_row_idx=i(row_idx),
-                  nz_pos=i32(pos), nz_col=i32(col))
+                  **structural(pos, col, slots, idx, dpos,
+                               np.asarray(a["bcsr_blk"]).size))
     elif a.get("bell_nbr") is not None:
         B = int(a["bell_B"])
         nbr = np.asarray(a["bell_nbr"], np.int64)
@@ -162,9 +183,12 @@ def mesh_from_arrays(a: dict, *, dtype, device) -> Mesh:
         if slots.size and slots[-1] >= cols.size:
             raise ValueError("ell_map addresses slots outside (n, K)")
         pos, col = ellm.ell_view(cols, slots)
+        dpos = (np.arange(n, dtype=np.int64) * cols.shape[1]
+                + np.asarray(a["ell_diag_slot"], np.int64))
         kw = dict(ell_cols=i(cols), ell_map=i(a["ell_map"]),
-                  ell_diag_slot=i(a["ell_diag_slot"]), ell_fold_slots=i(slots),
-                  ell_fold_idx=i(idx), nz_pos=i32(pos), nz_col=i32(col))
+                  ell_diag_slot=i(a["ell_diag_slot"]),
+                  **structural(pos, col, slots, idx, dpos,
+                               np.asarray(a["ell_map"]).size))
     return Mesh(
         nodes=f("nodes"), cells=i(a["cells"]), area=f("area"),
         grads=f("grads"), node_area=f("node_area"),

@@ -18,12 +18,14 @@ floor ``matvec0(x) + extra * x`` of shakti_tpu/solve/newton.py):
   shakti_tpu/fem/bell.py:bell_matvec with the epilogue composed in PyTorch.
   :func:`bell_operator_structural` is the kernel's mirror over the view.
 - **ell_spmv** serves the scalar-ELL and the block-CSR operator, which the
-  JAX package computes in XLA (no TPU kernel).  :func:`ell_operator_fn`:
-  on CUDA tensors one launch reading the view ``mesh.nz_pos`` /
-  ``mesh.nz_col`` (fem/ell.scalar_view); on CPU tensors
-  :func:`ell_operator_plain` (fem/ell.ell_matvec or fem/bcsr.bcsr_matvec
-  with the epilogue composed); :func:`ell_operator_structural` is the
-  mirror.
+  JAX package computes in XLA (no TPU kernel).  Both store their structural
+  values alone, ``svals`` (W, n) with columns ``mesh.nz_col`` (fem/ell.py).
+  :func:`ell_operator_fn`: on CUDA tensors one launch reading svals and
+  nz_col at m * n + i; on CPU tensors :func:`ell_operator_plain`, the same
+  terms in the same order as PyTorch ops (:func:`structural_matvec` with
+  the epilogue composed), which is also the kernel's mirror.
+  :func:`ell_operator_dense` is the second yardstick: the JAX-layout
+  product (fem/ell.ell_matvec, fem/bcsr.bcsr_matvec) after fem/ell.to_dense.
 
 The mirrors do the kernels' operations in the kernels' order, so tests and
 chip_smoke.py compare each kernel with its mirror bit for bit.
@@ -50,7 +52,7 @@ from pathlib import Path
 import torch
 
 from shakti_tpu_torch.fem.bcsr import bcsr_matvec
-from shakti_tpu_torch.fem.ell import ell_matvec
+from shakti_tpu_torch.fem.ell import ell_matvec, to_dense
 from shakti_tpu_torch.fem.ops import fixed_sum
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -64,7 +66,7 @@ _p, _i = ctypes.c_void_p, ctypes.c_int
 # C signature of each library's f32/f64 entry points
 KERNELS = {
     "bell_spmv": [_p, _p, _p, _i, _i, _i, _i, _p, _p, _p, _p, _i, _p],
-    "ell_spmv": [_p, _p, _p, _i, _i, _p, _p, _p, _p, _i, _p],
+    "ell_spmv": [_p, _p, _i, _i, _p, _p, _p, _p, _i, _p],
 }
 
 
@@ -248,21 +250,32 @@ def bell_operator_structural(vals, mesh, x, dirichlet=None, extra=None):
         x, dirichlet, extra)
 
 
-def ell_operator_plain(vals, mesh, x, dirichlet=None, extra=None):
-    """The ELL or BCSR operator in plain PyTorch over the stored values
-    (fem/ell.ell_matvec, fem/bcsr.bcsr_matvec): what the CPU path
-    computes."""
+def structural_matvec(svals, nz_col, x):
+    """y = A x over the structural values (W, n): gather x at the columns,
+    multiply, and sum the W terms of each row in order from the first (the
+    kernel's order; a padding term is 0 * x[row])."""
+    return fixed_sum(svals * x[nz_col], 0)
+
+
+def ell_operator_plain(svals, mesh, x, dirichlet=None, extra=None):
+    """The ELL or BCSR operator in plain PyTorch over the structural values:
+    what the CPU path computes, and the ell kernel's mirror (the same
+    operations in the same order)."""
+    return _compose(lambda xm: structural_matvec(svals, mesh.nz_col, xm), x,
+                    dirichlet, extra)
+
+
+def ell_operator_dense(svals, mesh, x, dirichlet=None, extra=None):
+    """The same operator through the JAX package's layout: fem/ell.to_dense,
+    then fem/bcsr.bcsr_matvec or fem/ell.ell_matvec with the epilogue
+    composed.  A yardstick for tests and chip_smoke.py; the solve path
+    never calls it."""
+    vals = to_dense(svals, mesh)
     if mesh.bcsr_brow is not None:
         return _compose(lambda xm: bcsr_matvec(vals, mesh, xm), x, dirichlet,
                         extra)
     return _compose(lambda xm: ell_matvec(vals, mesh.ell_cols, xm), x,
                     dirichlet, extra)
-
-
-def ell_operator_structural(vals, mesh, x, dirichlet=None, extra=None):
-    """The ell kernel's plain mirror: the operator over the mesh's view."""
-    return _compose(lambda xm: view_matvec(vals, mesh.nz_pos, mesh.nz_col, xm),
-                    x, dirichlet, extra)
 
 
 class _Launcher:
@@ -336,35 +349,29 @@ def bell_operator(vals, mesh, x, dirichlet=None, extra=None):
     return bell_operator_fn(vals, mesh, dirichlet, extra)(x)
 
 
-def ell_operator_fn(vals, mesh, dirichlet=None, extra=None):
-    """The operator's matvec ``x -> y`` for ELL values (n, K) or BCSR values
-    (nnzb, B, B) on ``mesh``, with the optional Dirichlet mask and diagonal
-    increment of :func:`bell_operator_fn`.  CUDA tensors: the
-    csrc/ell_spmv.cu kernel over the view ``mesh.nz_pos`` / ``mesh.nz_col``
-    (or an error: also for a view wider than W_MAX or values with 2**31 or
-    more entries); CPU tensors: :func:`ell_operator_plain`."""
+def ell_operator_fn(svals, mesh, dirichlet=None, extra=None):
+    """The operator's matvec ``x -> y`` for the structural values ``svals``
+    (W, n) of an ELL or BCSR mesh (fem/ell.fold_structural), with the
+    optional Dirichlet mask and diagonal increment of
+    :func:`bell_operator_fn`.  CUDA tensors: the csrc/ell_spmv.cu kernel
+    over svals and ``mesh.nz_col`` (or an error: also for W > W_MAX or a
+    view of 2**31 or more slots, which the kernel's int32 indices cannot
+    address); CPU tensors: :func:`ell_operator_plain`."""
     n = mesh.n_nodes
-    if mesh.bcsr_brow is not None:
-        shape = (mesh.bcsr_brow.shape[0], mesh.bcsr_B, mesh.bcsr_B)
-    elif mesh.ell_cols is not None:
-        shape = tuple(mesh.ell_cols.shape)
-    else:
+    col = mesh.nz_col
+    if col is None:
         raise ValueError("mesh has neither an ELL nor a BCSR structure")
-    if tuple(vals.shape) != shape:
-        raise ValueError(f"vals must be {shape}, got {tuple(vals.shape)}")
-    pos, col = mesh.nz_pos, mesh.nz_col
-    _check_epilogue(vals, n, dirichlet, extra, (pos, col))
-    if vals.device.type == "cpu":
-        return functools.partial(_cpu_operator, ell_operator_plain, vals,
+    if svals.shape != col.shape:
+        raise ValueError(f"svals must be the structural (W, n) = "
+                         f"{tuple(col.shape)}, got {tuple(svals.shape)}")
+    _check_epilogue(svals, n, dirichlet, extra, (col,))
+    if svals.device.type == "cpu":
+        return functools.partial(_cpu_operator, ell_operator_plain, svals,
                                  mesh, dirichlet=dirichlet, extra=extra)
-    _check_view(pos, n, W_MAX)
-    if col.dtype != torch.int32 or col.shape != pos.shape:
-        raise ValueError(f"the view's columns must be int32 {tuple(pos.shape)}"
-                         f", got {col.dtype} {tuple(col.shape)}")
-    if vals.numel() >= 2 ** 31:
-        raise ValueError(f"vals has {vals.numel()} >= 2**31 entries: its "
-                         "positions do not fit the kernel's int32")
-    return _Launcher("ell_spmv", vals, n,
-                     (vals.data_ptr(), pos.data_ptr(), col.data_ptr(),
-                      pos.shape[0], n),
-                     (pos, col), dirichlet, extra)
+    _check_view(col, n, W_MAX)
+    if col.numel() >= 2 ** 31:
+        raise ValueError(f"the structural view has {col.numel()} >= 2**31 "
+                         "slots: they do not fit the kernel's int32")
+    return _Launcher("ell_spmv", svals, n,
+                     (svals.data_ptr(), col.data_ptr(), col.shape[0], n),
+                     (col,), dirichlet, extra)

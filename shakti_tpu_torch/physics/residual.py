@@ -19,7 +19,6 @@ from typing import Any
 import torch
 import torch.autograd.forward_ad as fwAD
 
-from shakti_tpu_torch.fem import bcsr as bcsrm
 from shakti_tpu_torch.fem import bell as bellm
 from shakti_tpu_torch.fem import ell as ellm
 from shakti_tpu_torch.fem import ops
@@ -173,39 +172,34 @@ def has_values(mesh) -> bool:
 
 
 def operator_values_shape(mesh):
-    """Shape of the folded row-storage values in the mesh's operator format
-    (seeds the lag carry); raises for the matrix-free operator."""
-    if mesh.bcsr_brow is not None:
-        return (mesh.bcsr_brow.shape[0], mesh.bcsr_B, mesh.bcsr_B)
+    """Shape of the folded values as the solve path stores them (seeds the
+    lag carry): the structural (W, n) for BCSR and ELL, the blocks (NB, KB,
+    B, B) for block-ELL; raises for the matrix-free operator."""
+    if mesh.structural:
+        return tuple(mesh.nz_col.shape)
     if mesh.bell_nbr is not None:
         NB, KB = mesh.bell_nbr.shape
         return (NB, KB, mesh.bell_B, mesh.bell_B)
-    if mesh.ell_cols is not None:
-        return tuple(mesh.ell_cols.shape)
     raise ValueError("mesh has no foldable operator structure")
 
 
 def fold_operator_values(J_c, mesh):
-    """Element blocks -> row-storage values of A = -J in the mesh's format,
-    in the JAX package's priority bcsr > bell > ell (the small element
-    blocks are negated, not the folded values)."""
+    """Element blocks -> stored values of A = -J in the mesh's format, in
+    the JAX package's priority bcsr > bell > ell (the small element blocks
+    are negated, not the folded values)."""
     nJ = -J_c
-    if mesh.bcsr_brow is not None:
-        return bcsrm.bcsr_from_elements(nJ, mesh)
+    if mesh.structural:
+        return ellm.fold_structural(nJ, mesh)
     if mesh.bell_nbr is not None:
         return bellm.bell_from_elements(nJ, mesh)
-    if mesh.ell_cols is not None:
-        return ellm.ell_from_elements(nJ, mesh)
     raise ValueError("mesh has no foldable operator structure")
 
 
 def operator_diag_from_values(vals, mesh):
     """Assembled diagonal of A from the folded values."""
-    if mesh.bcsr_brow is not None:
-        return bcsrm.bcsr_diag(vals, mesh.bcsr_diag_blk, mesh.bcsr_diag_off)
-    if mesh.bell_nbr is not None:
-        return bellm.bell_diag(vals, mesh.bell_diag_pos)
-    return ellm.ell_diag(vals, mesh.ell_diag_slot)
+    if mesh.structural:
+        return ellm.structural_diag(vals, mesh)
+    return bellm.bell_diag(vals, mesh.bell_diag_pos)
 
 
 def operator_from_values(vals, mesh, dirichlet, extra=None):
@@ -215,9 +209,9 @@ def operator_from_values(vals, mesh, dirichlet, extra=None):
     once here; on the card each matvec is one kernel launch
     (ops/spmv_cuda.py: bell_spmv for block-ELL, ell_spmv for BCSR and
     ELL)."""
-    if mesh.bcsr_brow is None and mesh.bell_nbr is not None:
-        return spmv.bell_operator_fn(vals, mesh, dirichlet, extra)
-    return spmv.ell_operator_fn(vals, mesh, dirichlet, extra)
+    if mesh.structural:
+        return spmv.ell_operator_fn(vals, mesh, dirichlet, extra)
+    return spmv.bell_operator_fn(vals, mesh, dirichlet, extra)
 
 
 def make_operator(J_c, mesh, dirichlet):

@@ -2,12 +2,13 @@
 two-level (Jacobi + Galerkin coarse correction over contiguous aggregates).
 
 Port of shakti_tpu/solve/precond.py.  The coarse operator is rebuilt from
-the folded values when the mesh's format tiles the aggregates
-(:func:`coarse_from_values`: always for ELL, for the block formats when the
-aggregate is a multiple of the block edge or divides it), else from the
-element blocks (:func:`coarse_inverse`, also the matrix-free operator's).
-Every aggregate sum is a deterministic gather over a host-built plan,
-cached per (structure, block), not an atomic scatter.  The multilevel
+the folded values where they tile the aggregates
+(:func:`coarse_from_values`: always for ELL and block-CSR, whose values are
+stored entry by entry (fem/ell.py); for block-ELL when the aggregate is a
+multiple of the block edge or divides it), else from the element blocks
+(:func:`coarse_inverse`, also the matrix-free operator's).  Every aggregate
+sum is a deterministic gather over a host-built plan, cached per
+(structure, block), not an atomic scatter.  The multilevel
 preconditioner ('mg') is not ported yet (ROADMAP).
 """
 
@@ -18,7 +19,8 @@ import weakref
 import numpy as np
 import torch
 
-from shakti_tpu_torch.fem.ops import gather_plan, plan_sum
+from shakti_tpu_torch.fem.ops import (chunked_plan, chunked_sum, gather_plan,
+                                      plan_sum)
 
 
 def make_jacobi(a_diag, dirichlet, tiny):
@@ -35,25 +37,18 @@ def _regularized_inverse(A_c, m, dtype, tiny):
     return torch.linalg.inv(A_c)
 
 
-def _block_edge(mesh):
-    """The block edge of the mesh's block format (bcsr before bell, as the
-    fold), or None for ELL and the matrix-free operator."""
-    if mesh.bcsr_brow is not None:
-        return int(mesh.bcsr_B)
-    if mesh.bell_nbr is not None:
-        return int(mesh.bell_B)
-    return None
-
-
 def vals_coarse_ok(mesh, block: int) -> bool:
     """Can :func:`coarse_from_values` build the coarse operator from the
-    folded values?  Scalar ELL always; the block formats when their blocks
-    tile the aggregates exactly (the aggregate a multiple of the block
-    edge, or dividing it); the matrix-free operator never."""
-    B = _block_edge(mesh)
-    if B is not None:
+    folded values?  Scalar ELL and block-CSR always (scalar entries tile
+    any aggregate); block-ELL when its blocks tile the aggregates exactly
+    (the aggregate a multiple of the block edge, or dividing it); the
+    matrix-free operator never."""
+    if mesh.structural:
+        return True
+    if mesh.bell_nbr is not None:
+        B = int(mesh.bell_B)
         return block % B == 0 or B % block == 0
-    return mesh.ell_cols is not None
+    return False
 
 
 def _tile_ids(rb, cb, B: int, block: int, m: int):
@@ -84,26 +79,26 @@ def coarse_plan(rb, cb, B: int, block: int, n: int):
 
 
 def _host_plan(mesh, block: int, elements: bool):
-    """The gather plan of a coarse build's aggregate sum: over the 9c
-    element entries (``elements``, :func:`coarse_inverse`), or over the
-    values :func:`coarse_from_values` sums: per stored block or sub-tile
-    (block formats), per (row, slot) entry (ELL)."""
+    """The plan of a coarse build's aggregate sum: a gather plan over the
+    9c element entries (``elements``, :func:`coarse_inverse`) or over
+    block-ELL's stored blocks or sub-tiles; for the structural values of
+    ELL and block-CSR a chunked plan over the structural slots (an
+    aggregate pair holds up to ~W * block of them, a neighbouring pair a
+    few: fem/ops.chunked_plan)."""
     n = mesh.n_nodes
     m = -(-n // block)
     if elements:
         agg = mesh.cells.cpu().numpy() // block
         return gather_plan((agg[:, :, None] * m + agg[:, None, :]).reshape(-1))
-    if mesh.bcsr_brow is not None:
-        return coarse_plan(mesh.bcsr_brow.cpu().numpy(),
-                           mesh.bcsr_bcol.cpu().numpy(), mesh.bcsr_B, block, n)
-    if mesh.bell_nbr is not None:
-        nbr = mesh.bell_nbr.cpu().numpy()
-        NB, KB = nbr.shape
-        return coarse_plan(np.repeat(np.arange(NB), KB), nbr.reshape(-1),
-                           mesh.bell_B, block, n)
-    rows = np.arange(n)[:, None] // block
-    return gather_plan((rows * m + mesh.ell_cols.cpu().numpy() // block)
-                       .reshape(-1))
+    if mesh.structural:
+        col = mesh.nz_col.cpu().numpy().astype(np.int64)
+        at = np.flatnonzero(mesh.nz_pos.cpu().numpy().reshape(-1) >= 0)
+        keys = (at % n) // block * m + col.reshape(-1)[at] // block
+        return chunked_plan(keys, at, col.size)
+    nbr = mesh.bell_nbr.cpu().numpy()
+    NB, KB = nbr.shape
+    return coarse_plan(np.repeat(np.arange(NB), KB), nbr.reshape(-1),
+                       mesh.bell_B, block, n)
 
 
 # (id(structure), block, n) -> the plan on the structure's device (the
@@ -117,15 +112,13 @@ def _device_coarse_plan(mesh, block: int, elements: bool = False):
     """The coarse gather plan for this mesh and aggregate size, built on the
     host once per (structure, block) and kept on the mesh's device.
     ``elements``: the element path's plan (:func:`coarse_inverse`)."""
-    owner = (mesh.cells if elements else mesh.bcsr_brow
-             if mesh.bcsr_brow is not None else mesh.bell_nbr
-             if mesh.bell_nbr is not None else mesh.ell_cols)
+    owner = (mesh.cells if elements else mesh.nz_col
+             if mesh.structural else mesh.bell_nbr)
     key = (id(owner), block, mesh.n_nodes)
     plan = _PLANS.get(key)
     if plan is None:
-        slots, idx = _host_plan(mesh, block, elements)
-        plan = (torch.as_tensor(slots, device=owner.device),
-                torch.as_tensor(idx, device=owner.device))
+        plan = tuple(torch.as_tensor(a, device=owner.device)
+                     for a in _host_plan(mesh, block, elements))
         _PLANS[key] = plan
         weakref.finalize(owner, _PLANS.pop, key, None)
     return plan
@@ -159,29 +152,23 @@ def coarse_from_values(vals, mesh, dirichlet, block: int = 64):
     m = -(-n // block)
     dtype = vals.dtype
     free = (~dirichlet).to(dtype)
-    B = _block_edge(mesh)
-    if B is None:                                           # scalar ELL
-        s = vals * free[:, None] * free[mesh.ell_cols]
+    if mesh.structural:             # structural values: ELL, BCSR
+        s = vals * free * free[mesh.nz_col]
+        A_c = chunked_sum(s, *_device_coarse_plan(mesh, block), m * m)
     else:
-        if mesh.bcsr_brow is not None:
-            NB = int(mesh.bcsr_NB)
-            freep = torch.nn.functional.pad(free, (0, NB * B - n)).reshape(NB, B)
-            masked = (vals * freep[mesh.bcsr_brow][:, :, None]
-                      * freep[mesh.bcsr_bcol][:, None, :])
-        else:
-            NB, KB = mesh.bell_nbr.shape
-            freep = torch.nn.functional.pad(free, (0, NB * B - n)).reshape(NB, B)
-            fc = freep[mesh.bell_nbr]                            # (NB, KB, B)
-            masked = (vals * freep[:, None, :, None]
-                      * fc[:, :, None, :]).reshape(NB * KB, B, B)
-        K = masked.shape[0]
+        B = int(mesh.bell_B)
+        NB, KB = mesh.bell_nbr.shape
+        freep = torch.nn.functional.pad(free, (0, NB * B - n)).reshape(NB, B)
+        fc = freep[mesh.bell_nbr]                                # (NB, KB, B)
+        masked = (vals * freep[:, None, :, None]
+                  * fc[:, :, None, :]).reshape(NB * KB, B, B)
         if block % B == 0:
             s = masked.sum(dim=(1, 2))
         else:
             sb = B // block
-            s = masked.reshape(K, sb, block, sb, block).sum(dim=(2, 4))
-    slots, idx = _device_coarse_plan(mesh, block)
-    A_c = plan_sum(s, slots, idx, m * m).reshape(m, m)
+            s = masked.reshape(NB * KB, sb, block, sb, block).sum(dim=(2, 4))
+        A_c = plan_sum(s, *_device_coarse_plan(mesh, block), m * m)
+    A_c = A_c.reshape(m, m)
     return _regularized_inverse(A_c, m, dtype, torch.finfo(dtype).tiny)
 
 

@@ -3,12 +3,14 @@ against shakti_tpu, in float64 on the CPU:
 
 - the host builders (build_ell_map, build_bcsr) equal JAX's exactly, and so
   does every Mesh field of build_mesh in each format;
-- the folds, diagonals, plain matvecs, the matrix-free operator and the
-  coarse builds (from values, whole blocks and sub-tiles; from elements)
-  agree with JAX's to 1e-13 (the coarse operators to 1e-12);
-- the mirror of csrc/ell_spmv.cu over the scalar-ELL view equals the plain
-  twin to 1e-12, padding and Dirichlet rows included, and the view holds
-  exactly the mesh's vertex pairs;
+- the folds (the port's structural values scattered into JAX's layout),
+  diagonals, plain matvecs, the matrix-free operator and the coarse builds
+  (from the structural values at every aggregate size; from elements) agree
+  with JAX's to 1e-13 (the coarse operators to 1e-12);
+- the plain version of csrc/ell_spmv.cu over the structural values equals
+  the product in JAX's layout to 1e-12, padding and Dirichlet rows
+  included, and the view holds exactly the mesh's vertex pairs;
+  tests/test_torch_structural.py holds the structural storage itself;
 - the slice steps like JAX's in every format (1e-10 of scale, equal Newton
   counts) and meets the goldens (1e-7), and BiCGStab matches JAX's.
 """
@@ -113,8 +115,10 @@ def fmt(request):
 
 def test_fold_diag_matvec_match_jax(fmt):
     jm, tm, jv, tv = fmt["jm"], fmt["tm"], fmt["jv"], fmt["tv"]
-    assert tv.shape == tres.operator_values_shape(tm) == jv.shape
-    assert rel_err(tv.numpy(), jv) <= 1e-13
+    assert tv.shape == tres.operator_values_shape(tm) == tm.nz_col.shape
+    dense = tell.to_dense(tv, tm)
+    assert dense.shape == jv.shape
+    assert rel_err(dense.numpy(), jv) <= 1e-13
     assert rel_err(tres.operator_diag_from_values(tv, tm).numpy(),
                    np.asarray(jres.operator_diag_from_values(
                        jnp.asarray(jv), jm))) <= 1e-13
@@ -127,13 +131,16 @@ def test_fold_diag_matvec_match_jax(fmt):
 
 
 def test_fold_is_zero_outside_the_view(fmt):
+    """The structural values hold every nonzero of JAX's fold, exact zeros
+    on padding, and scatter to zero outside the view."""
     tm, tv = fmt["tm"], fmt["tv"]
     pos = tm.nz_pos
-    assert pos.dtype == torch.int32 and tm.nz_col.dtype == torch.int32
-    inside = pos[pos >= 0].long()
-    assert torch.equal(torch.sort(inside).values, getattr(
-        tm, "bcsr_fold_slots" if fmt["B"] else "ell_fold_slots"))
-    outside = tv.reshape(-1).clone()
+    assert pos.dtype == torch.int64 and tm.nz_col.dtype == torch.int32
+    inside = pos[pos >= 0]
+    assert torch.equal(torch.sort(inside).values,
+                       torch.as_tensor(np.flatnonzero(fmt["jv"].reshape(-1))))
+    assert int(torch.count_nonzero(tv[pos < 0])) == 0
+    outside = tell.to_dense(tv, tm).reshape(-1).clone()
     outside[inside] = 0.0
     assert int(torch.count_nonzero(outside)) == 0
     # the view's (row, column) pairs are exactly the mesh's vertex pairs,
@@ -154,35 +161,37 @@ def test_fold_is_zero_outside_the_view(fmt):
 
 @pytest.mark.parametrize("epilogue", [False, True])
 def test_mirror_matches_plain_f64(fmt, epilogue):
-    """The kernel's mirror over the view against the plain twin over the
-    stored values: the same terms summed in another order."""
+    """The kernel's plain version (and mirror) over the structural values
+    against the product over JAX's layout: the same terms summed in another
+    order."""
     tm, tv = fmt["tm"], fmt["tv"]
     x = torch.as_tensor(fmt["x"])
     d, e = ((torch.as_tensor(fmt["dmask"]), torch.as_tensor(fmt["extra"]))
             if epilogue else (None, None))
-    ref = spmv.ell_operator_plain(tv, tm, x, d, e)
-    got = spmv.ell_operator_structural(tv, tm, x, d, e)
+    ref = spmv.ell_operator_dense(tv, tm, x, d, e)
+    got = spmv.ell_operator_plain(tv, tm, x, d, e)
     np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-12,
                                atol=1e-12 * ref.abs().max().item())
     if epilogue:
         assert torch.equal(got[d], x[d] + e[d] * x[d])
     if fmt["B"] == 16:
         assert tm.n_nodes % 16 != 0      # a partly padded last block row
-    # the CPU wrapper computes the plain twin and launches nothing
+    # the CPU wrapper computes the plain version and launches nothing
     before = dict(spmv.launches)
-    assert torch.equal(spmv.ell_operator_fn(tv, tm, d, e)(x), ref)
+    assert torch.equal(spmv.ell_operator_fn(tv, tm, d, e)(x), got)
     assert spmv.launches == before
 
 
 @pytest.mark.parametrize("block", [8, 16, 32, 64])
 def test_coarse_from_values_matches_jax(fmt, block):
-    """ELL at any aggregate size; BCSR with sub-tiles (block < B) and whole
-    blocks (block >= B)."""
+    """ELL and BCSR at any aggregate size from the structural values; JAX
+    from its blocks, with sub-tiles (block < B) and whole blocks
+    (block >= B)."""
     jm, tm = fmt["jm"], fmt["tm"]
     B = fmt["B"]
-    ok = tpc.vals_coarse_ok(tm, block)
-    assert ok == jpc.vals_coarse_ok(jm, block) == (B is None or block % B == 0
-                                                   or B % block == 0)
+    assert tpc.vals_coarse_ok(tm, block)
+    assert jpc.vals_coarse_ok(jm, block) == (B is None or block % B == 0
+                                             or B % block == 0)
     d = fmt["dmask"]
     ref = np.asarray(jax.jit(
         lambda v, m, dm: jpc.coarse_from_values(v, m, dm, block))(
@@ -194,20 +203,30 @@ def test_coarse_from_values_matches_jax(fmt, block):
 @pytest.mark.parametrize("op,block", [("cells", 24), ("bcsr", 24),
                                       ("cells", 64)])
 def test_coarse_inverse_matches_jax(op, block):
-    """The element path: the matrix-free operator's, and block-CSR's when
-    the aggregates (24) do not tile its blocks (16)."""
+    """The element path: the matrix-free operator's, and JAX's for
+    block-CSR when the aggregates (24) do not tile its blocks (16); the
+    port's structural values tile any aggregate, and both of its paths
+    meet JAX's element path."""
     nodes, cells = _case_mesh("lake")
     jm = jbuild(nodes, cells, dtype=jnp.float64, operator=op, bell_block=16)
     tm = tbuild(nodes, cells, dtype=torch.float64, operator=op, bell_block=16)
-    assert not tpc.vals_coarse_ok(tm, block)
+    assert not jpc.vals_coarse_ok(jm, block)
+    assert tpc.vals_coarse_ok(tm, block) == (op == "bcsr")
     rng = np.random.default_rng(3)
     J = rng.normal(size=(tm.n_cells, 3, 3))
     d = rng.random(tm.n_nodes) < 0.1
     ref = np.asarray(jpc.coarse_inverse(jnp.asarray(J), jm, jnp.asarray(d), block))
     got = tpc.coarse_inverse(torch.as_tensor(J), tm, torch.as_tensor(d), block)
     assert rel_err(np.linalg.inv(got.numpy()), np.linalg.inv(ref)) <= 1e-12
-    with pytest.raises(ValueError, match="coarse_inverse"):
-        tpc.coarse_from_values(torch.zeros(1), tm, torch.as_tensor(d), block)
+    if op == "bcsr":
+        got = tpc.coarse_from_values(
+            tres.fold_operator_values(torch.as_tensor(J), tm), tm,
+            torch.as_tensor(d), block)
+        assert rel_err(np.linalg.inv(got.numpy()), np.linalg.inv(ref)) <= 1e-12
+    else:
+        with pytest.raises(ValueError, match="coarse_inverse"):
+            tpc.coarse_from_values(torch.zeros(1), tm, torch.as_tensor(d),
+                                   block)
 
 
 @pytest.mark.parametrize("op", ["cells", "ell", "bcsr"])
@@ -232,26 +251,26 @@ def test_make_operator_matches_jax(op):
 
 
 def test_wrapper_raises_where_the_kernel_cannot_run():
-    """Off the CPU, a view wider than the kernel's W_MAX and values with
-    2**31 or more entries raise (meta tensors: nothing is allocated)."""
+    """Off the CPU, a view wider than the kernel's W_MAX and one of 2**31
+    or more slots raise (meta tensors: nothing is allocated)."""
     nodes, cells = _case_mesh("slab")
     tm = tbuild(nodes, cells, dtype=torch.float64, operator="bcsr", bell_block=16)
-    meta = {k: getattr(tm, k).to("meta") for k in ("nz_pos", "nz_col", "bcsr_brow")}
-    W, n = tm.nz_pos.shape
-    wide = dataclasses.replace(tm, **dict(
-        meta, nz_pos=torch.empty((spmv.W_MAX + 1, n), dtype=torch.int32,
-                                 device="meta"),
-        nz_col=torch.empty((spmv.W_MAX + 1, n), dtype=torch.int32,
-                           device="meta")))
-    vals = torch.empty(tres.operator_values_shape(tm), device="meta")
+    n = tm.n_nodes
+
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    wide = dataclasses.replace(
+        tm, nz_col=meta((spmv.W_MAX + 1, n), torch.int32))
     with pytest.raises(ValueError, match="W <= 16"):
-        spmv.ell_operator_fn(vals.double(), wide)
-    huge_nnzb = 2 ** 31 // (16 * 16)
-    big = dataclasses.replace(tm, **dict(
-        meta, bcsr_brow=torch.empty(huge_nnzb, dtype=torch.int64, device="meta")))
-    vals = torch.empty((huge_nnzb, 16, 16), dtype=torch.float64, device="meta")
+        spmv.ell_operator_fn(meta((spmv.W_MAX + 1, n), torch.float64), wide)
+    W, n_big = 16, 2 ** 27
+    big = dataclasses.replace(tm, nodes=meta((n_big, 2), torch.float64),
+                              nz_col=meta((W, n_big), torch.int32))
     with pytest.raises(ValueError, match="2\\*\\*31"):
-        spmv.ell_operator_fn(vals, big)
+        spmv.ell_operator_fn(meta((W, n_big), torch.float64), big)
+    with pytest.raises(ValueError, match="structural"):
+        spmv.ell_operator_fn(meta((W, n), torch.float64), tm)
     with pytest.raises(ValueError, match="int32"):
         tell.scalar_view(np.zeros(1), np.array([2 ** 31]), np.zeros(1), 1)
 
