@@ -70,7 +70,25 @@ Phases (any failure raises: exit code != 0 and no result line):
      for 3 days: 24 float64 bootstrap steps marched on the card (every
      bootstrap tensor float64 on cuda), then float32; all 72 converge;
  12. BiCGStab: the bench model in float64 for 4 steps with
-     krylov="bicgstab": converges, N within 1e-7 of scale of phase 9's cg.
+     krylov="bicgstab": converges, N within 1e-7 of scale of phase 9's cg;
+ 13. mg: the multilevel V-cycle (precond="mg", Chebyshev degree 2, agg 4):
+     (a) the bench model in float64 for 4 steps in bell, ell and bcsr (B
+     32), hierarchy 12,270 -> 3,068 -> dense 767: converged, N and b in user
+     order within 1e-7 of scale of phase 9's bell two-level run; (b) phase
+     8's 1M-node model under mg (the same freeze, the hierarchy attached as
+     freeze attaches it: 1,002,001 -> 250,501 -> 62,626 -> 15,657 -> 3,915
+     -> dense 979), 24 steps through api/run.solve: converged, finite,
+     ell_spmv launched at least 5 times per CG iteration, no plain version
+     called; Newton and CG per step, ms/step of window 2 and peak memory
+     beside phase 8's, the host time of the hierarchy, three profiled steps
+     and the V-cycle apply's launches, device time and host syncs (0);
+ 14. steady: setup_slab 16 x 16 in float64 through solve_steady (tol 2e-2,
+     tests/test_steady.py's case): verdict steady, rate < tol, boundary
+     drift above it; 10 explicit hourly steps from the state move it less
+     than the certified rates allow; Q_out against Q_src; a segmented
+     march killed after one 64-attempt segment and resumed ends bit-identical
+     to the uninterrupted one; the CLI's --steady writes steady.npz and
+     steady_info.json.
 The line before the last is a JSON object with the kernels' numbers; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -527,10 +545,15 @@ def profile_steps(dev, step, state, forcing, kernel):
     dev_ops = [e for e in ka if e.device_type == DeviceType.CUDA]
     dev_s = sum(e.self_device_time_total for e in dev_ops) / 1e6
     count = {e.key: e.count for e in ka}
-    log(f"  profiled: {1e3 * wall / steps:.3f} ms/step, device busy "
-        f"{100 * dev_s / wall:.1f} % ({1e3 * dev_s / steps:.3f} ms/step), "
-        f"{count.get('cudaLaunchKernel', 0) / steps:.1f} launches/step, "
-        f"{count.get('aten::_local_scalar_dense', 0) / steps:.1f} syncs/step")
+    res = dict(ms_per_step=ms, profiled_ms_per_step=1e3 * wall / steps,
+               busy=dev_s / wall, device_ms_per_step=1e3 * dev_s / steps,
+               launches_per_step=count.get("cudaLaunchKernel", 0) / steps,
+               syncs_per_step=count.get("aten::_local_scalar_dense", 0) / steps,
+               newton=d["newton_iters"].tolist(), cg=d["cg_iters"].tolist())
+    log(f"  profiled: {res['profiled_ms_per_step']:.3f} ms/step, device busy "
+        f"{100 * res['busy']:.1f} % ({res['device_ms_per_step']:.3f} ms/step),"
+        f" {res['launches_per_step']:.1f} launches/step, "
+        f"{res['syncs_per_step']:.1f} syncs/step")
     share = {e.key.removeprefix("aten::"): e.self_device_time_total
              for e in ka if e.device_type == DeviceType.CPU
              and e.key.startswith("aten::") and e.self_device_time_total}
@@ -545,6 +568,7 @@ def profile_steps(dev, step, state, forcing, kernel):
     top = sorted(share.items(), key=lambda kv: -kv[1])[:12]
     log("  device time by op: " + ", ".join(
         f"{k} {100 * v / 1e6 / max(dev_s, 1e-12):.1f} %" for k, v in top))
+    return res
 
 
 def phase_profile(dev, md, state):
@@ -688,18 +712,15 @@ def scale_model(nx=1000):
     return md
 
 
-def phase_scale(dev, md, frozen):
-    """Phase 8: the 1M-node model through api/run.solve (its freeze is
-    ``frozen``, made once for phases 7 and 8).  Times each window between
-    synchronizations; returns the numbers and the ell_spmv launches."""
+def phase_scale(dev, md, frozen, label="1M-node run"):
+    """Phase 8 (and 13's 1M-node run): the 1M-node model through
+    api/run.solve (its freeze is ``frozen``, made once for phases 7, 8 and
+    13).  Times each window between synchronizations; returns the numbers,
+    the ell_spmv launches and the profile of three steady steps."""
     from shakti_tpu_torch.api import run as trun
     from shakti_tpu_torch.ops import spmv_cuda
     from shakti_tpu_torch.physics import residual
     mesh, _, _, cfg = frozen
-    if (mesh.n_nodes, mesh.bcsr_B, cfg.coarse_block, cfg.lag_operator) != (
-            1_002_001, 32, 1024, False):
-        raise RuntimeError(f"auto at 1M nodes: B {mesh.bcsr_B}, coarse "
-                           f"{cfg.coarse_block}, lag {cfg.lag_operator}")
     windows, plain_calls = [], {"ell": 0, "bell": 0}
     fold_shapes = set()
     real_window = trun.run_window
@@ -755,23 +776,26 @@ def phase_scale(dev, md, frozen):
         raise RuntimeError(f"1M-node run: folds of shapes {fold_shapes}; the "
                            f"structural one is {tuple(mesh.nz_col.shape)}")
     wall, d = windows[1]
+    newton = sum((w[1]["newton_iters"].tolist() for w in windows), [])
+    cg = sum((w[1]["cg_iters"].tolist() for w in windows), [])
     res = dict(nodes=mesh.n_nodes, steps=out["steps"], launches=launches["ell_spmv"],
                ms_per_step_window2=1e3 * wall / d["newton_iters"].size,
                window2_steps=int(d["newton_iters"].size),
                newton_mean=out["newton_iters_total"] / out["steps"],
                cg_mean=out["cg_iters_total"] / out["steps"],
-               newton_window2=d["newton_iters"].tolist(),
-               cg_window2=d["cg_iters"].tolist(),
+               cg_total=out["cg_iters_total"], newton_steps=newton,
+               cg_steps=cg, newton_first3=newton[:3], cg_first3=cg[:3],
                ms_per_step_all=1e3 * out["wall_time"] / out["steps"],
                peak_mem_gb=peak_gb)
-    log("  1M-node run: " + json.dumps(res))
+    log(f"  {label}: " + json.dumps(res))
     # where a steady step goes at this size: the run's last three steps
     # again, from its final state
     from shakti_tpu_torch.solve.timestep import make_forcing, make_step_fn
     step = make_step_fn(mesh, frozen[1], md.params, cfg)
     last = {k: v[-3:] for k, v in make_forcing(
         md.timesteps, dtype=md.dtype, device=dev).items()}
-    profile_steps(dev, step, st, last, "ell_spmv")
+    res["profile"] = profile_steps(dev, step, st, last, "ell_spmv")
+    res["state"] = st
     return res
 
 
@@ -820,7 +844,7 @@ def phase_formats(dev):
                 raise RuntimeError(f"{op} differs from bell: {r}")
         res[op] = r
         log(f"  {op}: " + json.dumps(r))
-    return res, ref[0]
+    return res, dict(N=ref[0], b=ref[1])
 
 
 WRAPPER = """import numpy as np
@@ -935,6 +959,245 @@ def phase_bicgstab(dev, N_cg):
     return res
 
 
+def phase_mg_bench(dev, ref):
+    """Phase 13 (a): the bench model in float64 for 4 steps under
+    precond='mg' in bell, ell and bcsr (B 32), against phase 9's bell
+    two-level N and b (``ref``).  Returns the counts and launches."""
+    res = {}
+    for op, kernel in (("bell", "bell_spmv"), ("ell", "ell_spmv"),
+                       ("bcsr", "ell_spmv")):
+        md = bench_f64(dev, op, precond="mg")
+        mesh = md.freeze()[0]
+        if mesh.mg is None or mesh.mg.sizes != [3068, 767]:
+            raise RuntimeError(f"mg {op}: hierarchy "
+                               f"{None if mesh.mg is None else mesh.mg.sizes}")
+        out, launches = run_counted(md)
+        r = dict(newton=out["newton_iters_total"], cg=out["cg_iters_total"],
+                 launches=launches)
+        for k, v in (("N", out["state"].N), ("b", out["state"].b)):
+            a, want = md.to_user_order(v), ref[k]
+            r[f"err_{k}"] = float(np.abs(a - want).max() / np.abs(want).max())
+        log(f"  mg {op}: " + json.dumps(r))
+        if max(r["err_N"], r["err_b"]) > 1e-7 or launches[kernel] <= 0:
+            raise RuntimeError(f"mg {op} against bell two-level: {r}")
+        res[op] = r
+    return res
+
+
+def mg_apply_cost(dev, mesh, static, state, cfg, params, dt):
+    """The V-cycle apply built as a Newton iteration builds it at ``state``:
+    launches and host syncs per apply (torch.profiler over 20 applies; no
+    sync is allowed), ell_spmv launches per apply (4: Chebyshev degree 2),
+    device time per apply (:func:`device_ms`), time per apply between CUDA
+    events, host time per apply, and the device time of one build (level
+    assembly and dense inverse)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from shakti_tpu_torch.ops import spmv_cuda
+    from shakti_tpu_torch.physics import residual as res
+    from shakti_tpu_torch.solve import precond as pc
+    from shakti_tpu_torch.solve.newton import diag_floor_extra
+    d = static.dirichlet
+    pre = res.precompute_step(mesh, state.N, state.b, state.q, state.melt,
+                              static, dt, params, cfg.quad_degree)
+    J_c = res.element_jacobian(state.N, pre, mesh, params)
+    vals = res.fold_operator_values(J_c, mesh)
+    a_diag = res.operator_diag_from_values(vals, mesh)
+    extra = diag_floor_extra(a_diag, d, mesh, cfg.diag_floor_rel)
+    matvec = res.operator_from_values(vals, mesh, d, extra)
+
+    def build():
+        return pc.make_preconditioner(
+            "mg", mesh, d, a_diag + extra, cfg.coarse_block, J_c=J_c,
+            matvec=matvec, mg_omega=cfg.mg_omega, mg_smoother=cfg.mg_smoother,
+            mg_cheb_deg=cfg.mg_cheb_deg, mg_cheb_frac=cfg.mg_cheb_frac,
+            mg_cycle=cfg.mg_cycle, mg_smooth_p=cfg.mg_smooth_p)
+
+    apply = build()
+    r = torch.randn(mesh.n_nodes, dtype=state.N.dtype, device=dev,
+                    generator=torch.Generator(dev).manual_seed(0))
+    reps = 20
+    for _ in range(3):
+        apply(r)
+    torch.cuda.synchronize(dev)
+    before = spmv_cuda.launches["ell_spmv"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            apply(r)
+        torch.cuda.synchronize(dev)
+    spmv_per_apply = (spmv_cuda.launches["ell_spmv"] - before) / reps
+    count = {e.key: e.count for e in prof.key_averages()}
+    out = dict(launches_per_apply=count.get("cudaLaunchKernel", 0) / reps,
+               ell_spmv_per_apply=spmv_per_apply,
+               syncs_per_apply=count.get("aten::_local_scalar_dense", 0) / reps,
+               device_ms_per_apply=device_ms(lambda: apply(r), reps=reps,
+                                             warmup=2),
+               ms_per_apply=median_ms(lambda: apply(r), reps=20),
+               host_us_per_apply=host_us(lambda: apply(r), reps=50, warmup=3),
+               build_device_ms=device_ms(build, reps=3, warmup=1))
+    if out["syncs_per_apply"] or out["ell_spmv_per_apply"] != 4:
+        raise RuntimeError(f"mg apply: {out}")
+    return out
+
+
+# the 1M-node mesh's hierarchy at mg_agg 4, mg_coarse_cap 1536: four ELL
+# levels and the dense coarse problem
+HIERARCHY_1M = [250501, 62626, 15657, 3915, 979]
+
+
+def phase_mg_scale(dev, md, frozen, two_level, expect=HIERARCHY_1M):
+    """Phase 13 (b): phase 8's 1M-node model under precond='mg' (the same
+    freeze with the hierarchy attached as freeze attaches it), 24 steps
+    through api/run.solve; counts beside phase 8's two-level run."""
+    import dataclasses
+
+    from shakti_tpu_torch.solve.mg import attach_hierarchy
+    mesh, static, state0, cfg = frozen
+    cfg = dataclasses.replace(cfg, precond="mg")
+    t0 = time.perf_counter()
+    mesh = attach_hierarchy(mesh, cfg)
+    torch.cuda.synchronize(dev)
+    hier_s = time.perf_counter() - t0
+    sizes = mesh.mg.sizes
+    log(f"  hierarchy: {sizes} (agg {mesh.mg.agg}), built with its plans in "
+        f"{hier_s:.2f} s host time")
+    if sizes != expect:
+        raise RuntimeError(f"hierarchy {sizes}, expected {expect}")
+    md.solver = dataclasses.replace(md.solver, precond="mg")
+    r = phase_scale(dev, md, (mesh, static, state0, cfg), "1M-node run, mg")
+    r["hierarchy"], r["hierarchy_s"] = sizes, hier_s
+    if r["launches"] < 5 * r["cg_total"]:
+        raise RuntimeError(f"mg: {r['launches']} ell_spmv launches for "
+                           f"{r['cg_total']} CG iterations")
+    dt = torch.as_tensor(md.timesteps[-1] - md.timesteps[-2], dtype=md.dtype,
+                         device=dev)
+    r["apply"] = mg_apply_cost(dev, mesh, static, r["state"], cfg, md.params, dt)
+    # one apply per CG iteration and one more per Krylov solve
+    prof = r["profile"]
+    applies = (sum(prof["cg"]) + sum(prof["newton"])) / len(prof["cg"])
+    r["apply"]["vcycle_share"] = (
+        applies * r["apply"]["device_ms_per_apply"] / prof["device_ms_per_step"]
+        if prof["device_ms_per_step"] > 0 else None)
+    log(f"  mg apply: " + json.dumps(r["apply"]) + f"; {applies:.2f} applies "
+        f"per profiled step")
+    for k in ("newton_first3", "cg_first3", "newton_mean", "cg_mean",
+              "ms_per_step_window2", "peak_mem_gb"):
+        log(f"  {k}: mg {r[k]} | two-level {two_level[k]}")
+    return r
+
+
+STEADY_WRAPPER = """import torch
+
+from shakti_tpu_torch.setups import setup_slab
+
+
+def initialize():
+    md = setup_slab.initialize(nx=16, ny=16, results_name={rdir!r})
+    md.dtype = torch.float64
+    return md
+"""
+
+
+def phase_steady(dev, tmp):
+    """Phase 14: setup_slab 16 x 16 in float64 on the card through
+    solve_steady (tests/test_steady.py's case), the transient oracle from
+    its state, the mass budget, a segmented march killed after one segment
+    and resumed, and the CLI's --steady files."""
+    import dataclasses
+
+    from shakti_tpu_torch.api.steady import PTC_FILE
+    from shakti_tpu_torch.cli import main as cli_main
+    from shakti_tpu_torch.ops import spmv_cuda
+    from shakti_tpu_torch.setups import setup_slab
+    from shakti_tpu_torch.solve.newton import zero_lag
+    from shakti_tpu_torch.solve.timestep import make_step_fn
+    tol, year = 2e-2, 3.1536e7
+
+    def slab():
+        md = setup_slab.initialize(nx=16, ny=16)
+        md.device, md.dtype = dev, torch.float64
+        return md
+
+    md = slab()
+    spmv_cuda.reset_launches()
+    t0 = time.perf_counter()
+    out = md.solve_steady(tol=tol, max_steps=1600)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches = dict(spmv_cuda.launches)
+    info = out["info"]
+    res = dict(verdict=info["verdict"], steps=info["steps"],
+               accepted=info["accepted"], rejected=info["rejected"],
+               newton_total=info["newton_total"], cg_total=info["cg_total"],
+               rate=info["rate"], rate_b_bdry=info["rate_b_bdry"],
+               wall_s=wall, ms_per_ptc_step=1e3 * wall / info["steps"],
+               Q_out=out["Q_out"], Q_src=out["Q_src"],
+               budget_gap=abs(out["Q_out"] - out["Q_src"]) / abs(out["Q_src"]),
+               launches=launches)
+    log("  steady: " + json.dumps(res))
+    if not (info["verdict"] == "steady" and info["rate"] < tol
+            and info["rate_b_bdry"] > info["rate"]
+            and launches["bell_spmv"] > 0):
+        raise RuntimeError(f"steady: {res}")
+    # the independent oracle: 10 explicit hourly steps move the state less
+    # than the certified rates allow (5x headroom, tests/test_steady.py)
+    mesh, static, _, cfg = md.freeze()
+    step = make_step_fn(mesh, static, md.params, cfg)
+    s = out["state"]
+    s = dataclasses.replace(s, lag_op=zero_lag(mesh, s.N.dtype, cfg)
+                            if cfg.lag_operator else None)
+    N0, b0 = s.N, s.b
+    for _ in range(10):
+        s, d = step(s, torch.as_tensor(3600.0, dtype=torch.float64, device=dev))
+        if not d["converged"]:
+            raise RuntimeError("steady oracle: a transient step failed")
+    frac = 10 * 3600.0 / year
+    act, bdry = (~static.dirichlet).double(), static.dirichlet.double()
+
+    def rel(new, old, m):
+        return float(torch.linalg.vector_norm((new - old) * m)
+                     / torch.linalg.vector_norm(old * m))
+
+    oracle = dict(N=rel(s.N, N0, act) / (5 * tol * frac),
+                  b=rel(s.b, b0, act) / (5 * tol * frac),
+                  b_bdry=rel(s.b, b0, bdry) / (5 * info["rate_b_bdry"] * frac))
+    log("  oracle, movement over 10 hourly steps / its certified limit: "
+        + json.dumps(oracle))
+    if max(oracle.values()) >= 1.0:
+        raise RuntimeError(f"steady oracle: {oracle}")
+    # a segmented march killed after its first segment, then resumed
+    ck = os.path.join(tmp, "ptc")
+    first = slab().solve_steady(tol=tol, max_steps=64, strict=False,
+                                checkpoint=ck, segment_steps=64)
+    if first["info"]["steps"] != 64 or not os.path.exists(
+            os.path.join(ck, PTC_FILE)):
+        raise RuntimeError(f"segmented march: {first['info']}")
+    resumed = slab().solve_steady(tol=tol, max_steps=1600, checkpoint=ck,
+                                  segment_steps=256)
+    same = {k: bool(np.array_equal(resumed[k], out[k]))
+            for k in ("N", "b", "qx", "qy")}
+    same["steps"] = resumed["info"]["steps"] == info["steps"]
+    log(f"  killed after 64 attempts and resumed: bit-identical {same}")
+    if not all(same.values()):
+        raise RuntimeError(f"resumed steady march differs: {same}")
+    # the CLI
+    rdir = os.path.join(tmp, "slab_cli")
+    path = os.path.join(tmp, "slab_steady.py")
+    with open(path, "w") as f:
+        f.write(STEADY_WRAPPER.format(rdir=rdir))
+    if cli_main([path, "--steady", "--device", str(dev), "--quiet"]) != 0:
+        raise RuntimeError("cli --steady failed")
+    files = sorted(os.listdir(rdir + "_steady"))
+    keys = sorted(json.load(open(os.path.join(rdir + "_steady",
+                                              "steady_info.json"))))
+    log(f"  cli --steady wrote {files}, info keys {keys}")
+    if files != ["steady.npz", "steady_info.json"]:
+        raise RuntimeError(f"cli --steady files {files}")
+    res["resume_equal"] = same
+    return res
+
+
 # the kernels line: "ms", "plain_ms" and "library_ms" are times per call
 # between CUDA events (host work included), as "ms" has been since the first
 # kernel; the *_device_ms are torch.profiler's device times
@@ -945,7 +1208,7 @@ ELL_LINE_KEYS = tuple(k for k in LINE_KEYS if k != "host_us_composed")
 
 
 PHASES = ("kernel", "goldens", "main", "ell", "scale", "formats", "resume",
-          "bootstrap", "bicgstab")
+          "bootstrap", "bicgstab", "mg", "steady")
 
 
 def main(argv=None):
@@ -953,7 +1216,8 @@ def main(argv=None):
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES)
                     + " (resume needs main, bicgstab needs formats, scale "
-                    "needs ell); the result lines need all of them")
+                    "needs ell, mg needs scale and formats); the result lines "
+                    "need all of them")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     if not set(phases) <= set(PHASES):
@@ -987,7 +1251,7 @@ def main(argv=None):
     def stamp(name):
         log(f"[{name}] (t = {time.perf_counter() - t_start:.1f} s)")
 
-    kres = mres = sres = eres = None
+    kres = mres = sres = eres = gres = stres = None
     # ---- 3. bell_spmv vs plain at the bench shapes ----
     from shakti_tpu_torch.setups import setup_bench
     if "kernel" in phases:
@@ -1046,6 +1310,11 @@ def main(argv=None):
                 f"{frozen[0].n_nodes} nodes, {frozen[0].n_cells} cells, BCSR "
                 f"B {frozen[0].bcsr_B} nnzb {frozen[0].bcsr_brow.shape[0]}, "
                 f"coarse block {frozen[3].coarse_block}")
+            if (frozen[0].n_nodes, frozen[0].bcsr_B, frozen[3].coarse_block,
+                    frozen[3].lag_operator) != (1_002_001, 32, 1024, False):
+                raise RuntimeError(
+                    f"auto at 1M nodes: B {frozen[0].bcsr_B}, coarse "
+                    f"{frozen[3].coarse_block}, lag {frozen[3].lag_operator}")
             cases.append((f"large bcsr n={frozen[0].n_nodes}", frozen[0],
                           frozen[1].dirichlet))
             eres = phase_ell_kernel(dev, cases)
@@ -1054,16 +1323,22 @@ def main(argv=None):
                 stamp("scale: 24 steps on the large mesh through api/run.solve")
                 sres = phase_scale(dev, smd, frozen)
                 sres["freeze_s"] = freeze_s
+                if "mg" in phases:
+                    stamp("mg: the large mesh under the multilevel V-cycle")
+                    gres = {"1M": phase_mg_scale(dev, smd, frozen, sres)}
             del smd, frozen
             torch.cuda.empty_cache()
 
         # ---- 9. formats agree; 12. BiCGStab ----
         if "formats" in phases:
             stamp("formats: bench model, float64, 4 steps, four operators")
-            fres, N_cg = phase_formats(dev)
+            fres, ref = phase_formats(dev)
             if "bicgstab" in phases:
                 stamp("bicgstab: bench model, float64, 4 steps")
-                phase_bicgstab(dev, N_cg)
+                phase_bicgstab(dev, ref["N"])
+            if "mg" in phases and gres is not None:
+                stamp("mg: bench model, float64, 4 steps, bell/ell/bcsr")
+                gres["bench"] = phase_mg_bench(dev, ref)
 
         # ---- 10. resume through the CLI ----
         if "resume" in phases and "main" in phases:
@@ -1074,6 +1349,11 @@ def main(argv=None):
         if "bootstrap" in phases:
             stamp("bootstrap: setup_cooke2, reference cold start, 3 days")
             phase_bootstrap(dev, tmp)
+
+        # ---- 14. the steady state ----
+        if "steady" in phases:
+            stamp("steady: slab 16 x 16, float64, PTC")
+            stres = phase_steady(dev, tmp)
     stamp("done")
 
     if phases != list(PHASES):
@@ -1086,7 +1366,9 @@ def main(argv=None):
         "name": "bell_spmv", "route": "cuda",
         "source": "shakti_tpu_torch/csrc/bell_spmv.cu",
         "replaces": "shakti_tpu/ops/spmv_pallas.py:46",
-        "launches": mres["launches"], "W": kres["W"],
+        "launches": mres["launches"],
+        "launches_mg_bench": gres["bench"]["bell"]["launches"]["bell_spmv"],
+        "launches_steady": stres["launches"]["bell_spmv"], "W": kres["W"],
         **{k: f32[k] for k in LINE_KEYS}, "bound_by": f32["bound_by"],
         "float64": {k: kres["float64"][k] for k in LINE_KEYS}}, {
         "name": "ell_spmv", "route": "cuda",
@@ -1094,7 +1376,10 @@ def main(argv=None):
         "replaces": "none (not a TPU kernel): shakti_tpu/fem/bcsr.py:84 "
                     "bcsr_matvec and shakti_tpu/fem/ell.py:91 ell_matvec "
                     "run in XLA",
-        "launches": sres["launches"], "W": large["float32"]["W"],
+        "launches": sres["launches"], "launches_mg_1M": gres["1M"]["launches"],
+        "launches_mg_bench": {op: gres["bench"][op]["launches"]["ell_spmv"]
+                              for op in ("ell", "bcsr")},
+        "W": large["float32"]["W"],
         "n": large["float32"]["n"], "nnz": large["float32"]["nnz"],
         **{k: large["float32"][k] for k in ELL_LINE_KEYS},
         "bound_by": large["float32"]["bound_by"],

@@ -7,7 +7,8 @@ mesh arrays, set fields/toggles/ICs as numpy arrays, then ``solve()``.
 device: block-ELL up to 200k nodes, block-CSR beyond, both with RCB node
 renumbering (outputs are mapped back to the caller's node order through
 ``node_iperm``); scalar ELL and the matrix-free 'cells' operator are chosen
-explicitly (``md.operator``), in the caller's node order.
+explicitly (``md.operator``), in the caller's node order, unless the
+multilevel preconditioner ('mg') asks for RCB aggregates.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from shakti_tpu_torch.mesh import geometry as geo
 from shakti_tpu_torch.mesh.mesh import OPERATORS, build_mesh, cell_geometry
 from shakti_tpu_torch.parallel.partition import rcb_order
 from shakti_tpu_torch.params import DEFAULT_PARAMS, PhysicalParams
+from shakti_tpu_torch.solve.mg import attach_hierarchy
 from shakti_tpu_torch.solve.newton import NewtonConfig, check_config, zero_lag
 from shakti_tpu_torch.solve.timestep import State, make_static_fields
 from shakti_tpu_torch.utils.backend import resolve_device
@@ -163,9 +165,13 @@ class ModelSetup:
         """Build the immutable device problem (mesh, static_fields,
         initial_state, newton_config) on ``device`` (default self.device).
 
-        For the block formats the nodes are renumbered by recursive
-        coordinate bisection and ``self.node_iperm`` is set to the
-        solver-order -> user-order permutation (None otherwise)."""
+        For the block formats, and for any format under precond='mg'
+        (contiguous aggregates are then spatially compact), the nodes are
+        renumbered by recursive coordinate bisection and ``self.node_iperm``
+        is set to the solver-order -> user-order permutation (None
+        otherwise).  Under 'mg' the mesh carries its hierarchy (solve/mg.py,
+        None at or below mg_coarse_cap nodes) and the operator carry is
+        off."""
         dev = resolve_device(self.device if device is None else device)
         self.validate(require_timesteps=False)
         n = self.nodes.shape[0]
@@ -179,7 +185,7 @@ class ModelSetup:
 
         nodes, cells, perm = self.nodes, self.cells, None
         self.node_iperm = None
-        if op in ("bell", "bcsr"):
+        if op in ("bell", "bcsr") or self.solver.precond == "mg":
             perm = rcb_order(self.nodes)
             iperm = np.argsort(perm)
             nodes = self.nodes[perm]
@@ -197,14 +203,17 @@ class ModelSetup:
             while n // blk > 1536:
                 blk *= 2
             cfg = dataclasses.replace(cfg, coarse_block=blk)
-        if cfg.lag_operator is None:
-            # auto: carry the operator in the block-ELL regime only
-            cfg = dataclasses.replace(cfg, lag_operator=op == "bell")
+        if cfg.lag_operator is None or cfg.precond == "mg":
+            # auto: carry the operator in the block-ELL regime only; never
+            # under mg (the carry holds a two-level coarse inverse)
+            cfg = dataclasses.replace(
+                cfg, lag_operator=op == "bell" and cfg.precond != "mg")
         blk = self.operator_block
         if blk is None:
             blk = (32 if n <= 6_000_000 else 16) if op == "bcsr" else 128
-        mesh = build_mesh(nodes, cells, dtype=self.dtype, device=dev,
-                          operator=op, bell_block=blk)
+        mesh = attach_hierarchy(
+            build_mesh(nodes, cells, dtype=self.dtype, device=dev,
+                       operator=op, bell_block=blk), cfg)
         dnodes = geo.locate_boundary_nodes(nodes, cells, self.OutflowBoundary) \
             if (self.outflow_on and self.OutflowBoundary is not None) \
             else np.zeros(0, dtype=np.int64)
@@ -240,6 +249,8 @@ class ModelSetup:
         return _solve(self, **kw)
 
     def solve_steady(self, **kw):
-        raise NotImplementedError(
-            "steady-state solves (PTC) are not ported yet (ROADMAP, still to "
-            "port, item 4)")
+        """Solve directly for the steady state (pseudo-transient
+        continuation, api/steady.py); ``md.timesteps`` is optional here (it
+        only seeds the initial pseudo-dt when present)."""
+        from shakti_tpu_torch.api.steady import solve_steady as _steady
+        return _steady(self, **kw)

@@ -1,9 +1,13 @@
 """Command-line launcher (reference source/main.py equivalent).
 
     python -m shakti_tpu_torch <setup> [--device cuda|cpu] [--resume] [--quiet]
+    python -m shakti_tpu_torch <setup> --steady [--steady-tol TOL]
+                                       [--cycle-window K] [--device ...]
 
 Imports the named setup module, calls its ``initialize()`` to get a
-ModelSetup of this package, and runs ``md.solve()`` on the chosen device.
+ModelSetup of this package, and runs ``md.solve()`` on the chosen device,
+or with ``--steady`` ``md.solve_steady()``, which writes steady.npz and
+steady_info.json to ``<results_name>_steady/`` (the JAX package's files).
 A bare name resolves first against this package's own setups
 (shakti_tpu_torch/setups/), then ./setups and the current directory; a
 path to a .py file is loaded as it is.  ``--device cuda`` (the default)
@@ -15,8 +19,11 @@ from __future__ import annotations
 import argparse
 import importlib
 import importlib.util
+import json
 import os
 import sys
+
+import numpy as np
 
 _OWN_SETUPS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "setups")
 
@@ -56,6 +63,21 @@ def main(argv=None):
     ap.add_argument("--resume", action="store_true",
                     help="resume from the checkpoint in the results "
                          "directory (one written by either package)")
+    ap.add_argument("--steady", action="store_true",
+                    help="solve directly for the steady state "
+                         "(pseudo-transient continuation) instead of "
+                         "marching md.timesteps; writes steady.npz + "
+                         "steady_info.json to <results_name>_steady/")
+    ap.add_argument("--steady-tol", type=float, default=1e-2, metavar="TOL",
+                    help="steady drift tolerance per year (default 1e-2)")
+    ap.add_argument("--polish", action="store_true",
+                    help="with --steady: the monolithic coupled Newton after "
+                         "the march (not ported yet: raises)")
+    ap.add_argument("--cycle-window", type=int, default=0, metavar="K",
+                    help="with --steady: if the drift certificate cannot "
+                         "fire, march two windows of K accepted pseudo-steps "
+                         "and certify the limit cycle instead; the output "
+                         "becomes the cycle-mean state (default 0 = off)")
     ap.add_argument("--quiet", action="store_true")
     args = ap.parse_args(argv)
 
@@ -66,9 +88,44 @@ def main(argv=None):
     if md.setup_file is None and getattr(setup, "__file__", None):
         md.setup_file = setup.__file__
     md.device = device
+    if args.steady:
+        return _steady(md, args)
     out = md.solve(resume=args.resume, progress=not args.quiet)
     print(f"\ncompleted {out['steps']} steps in {out['wall_time']:.2f} s "
           f"({1e3 * out['wall_time'] / max(out['steps'], 1):.3f} ms/step)")
+    return 0
+
+
+def _steady(md, args):
+    """--steady: solve, print the JAX CLI's summary, write the files."""
+    out = md.solve_steady(tol=args.steady_tol, cycle_window=args.cycle_window,
+                          polish=args.polish)
+    info = out["info"]
+    verdict = info["verdict"]
+    print(f"\n{verdict} state in {info['steps']} PTC steps "
+          f"({info['rejected']} rejected, {info['newton_total']} Newton)"
+          f" — drift {info['rate']:.2e}/t_ref, wall {info['wall_s']:.2f} s")
+    if verdict == "cycle":
+        print(f"limit cycle certified: centroid rate "
+              f"{info['cycle_rate']:.2e}/t_ref, relative amplitude "
+              f"N {info['cycle_amp_N']:.2e} / b {info['cycle_amp_b']:.2e}"
+              f" — fields are the cycle mean")
+    if "Q_out" in out:
+        print(f"mass budget: boundary discharge {float(out['Q_out']):.6g}"
+              f" vs production {float(out['Q_src']):.6g} m^3/s")
+    if md.results_name is not None:
+        rdir = f"{md.results_name}_steady"
+        os.makedirs(rdir, exist_ok=True)
+        np.savez(os.path.join(rdir, "steady.npz"), N=out["N"], b=out["b"],
+                 qx=out["qx"], qy=out["qy"])
+        info_j = dict(info)
+        for k in ("Q_out", "Q_src"):
+            if k in out:
+                info_j[k] = float(out[k])
+        with open(os.path.join(rdir, "steady_info.json"), "w") as f:
+            json.dump(info_j, f, indent=1)
+        if not args.quiet:
+            print(f"wrote {rdir}/steady.npz")
     return 0
 
 

@@ -5,9 +5,10 @@ numpy data (mesh/static/state: dicts field name -> array; cfg: dict of
 NewtonConfig fields) and returns this package's Mesh, StaticFields, State
 and NewtonConfig on ``device``, lag carry included, in whichever operator
 format the JAX mesh carries (bell_*, ell_* or bcsr_* fields, or none: the
-matrix-free operator).  An ELL or block-CSR lag carry arrives in the JAX
-package's dense layout and becomes the port's structural values
-(fem/ell.from_dense).  :func:`state_to_numpy` is the reverse for a State
+matrix-free operator); under precond='mg' the mesh gets the port's
+hierarchy, built from the cells as freeze builds it.  An ELL or block-CSR
+lag carry arrives in the JAX package's dense layout and becomes the port's
+structural values (fem/ell.from_dense).  :func:`state_to_numpy` is the reverse for a State
 (with its mesh, for such a carry).  No jax is imported: the caller does the
 ``np.asarray`` on the JAX side.
 """
@@ -21,6 +22,7 @@ import torch
 
 from shakti_tpu_torch.fem.ell import from_dense, to_dense
 from shakti_tpu_torch.mesh.mesh import mesh_from_arrays
+from shakti_tpu_torch.solve.mg import attach_hierarchy
 from shakti_tpu_torch.solve.newton import NewtonConfig
 from shakti_tpu_torch.solve.timestep import State, StaticFields
 from shakti_tpu_torch.utils.backend import resolve_device
@@ -52,7 +54,7 @@ def problem_from_numpy(mesh: dict, static: dict, state: dict, cfg: dict,
     dtype = _TORCH_DTYPE[np.asarray(mesh["nodes"]).dtype]
     names = {f.name for f in dataclasses.fields(NewtonConfig)}
     ncfg = NewtonConfig(**{k: v for k, v in cfg.items() if k in names})
-    m = mesh_from_arrays(mesh, dtype=dtype, device=dev)
+    m = attach_hierarchy(mesh_from_arrays(mesh, dtype=dtype, device=dev), ncfg)
 
     def t(a):
         return torch.as_tensor(np.array(a), dtype=dtype, device=dev)

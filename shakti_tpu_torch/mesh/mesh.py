@@ -76,6 +76,8 @@ class Mesh:
     # element entries of each slot, sentinel 9c on pads
     nz_fold_idx: torch.Tensor | None = None
     nz_diag: torch.Tensor | None = None  # (n,) flat slot of the diagonal
+    # the multilevel hierarchy (solve/mg.MGPlan) when precond='mg'
+    mg: object | None = None
 
     @property
     def n_nodes(self) -> int:

@@ -26,8 +26,9 @@ from shakti_tpu_torch.solve import precond as pc
 class NewtonConfig:
     """Solver configuration: the fields and defaults of
     shakti_tpu.solve.newton.NewtonConfig (see there for each knob's
-    rationale).  The mg_* fields, precond='mg' and differentiable=True are
-    accepted for compatibility but not ported yet; using them raises
+    rationale).  ``precond``: 'jacobi', 'two_level' or 'mg' (the multilevel
+    V-cycle of solve/mg.py, tuned by the mg_* fields).  differentiable=True
+    is accepted for compatibility but not ported yet; using it raises
     NotImplementedError."""
 
     rtol: float = 1e-9
@@ -87,7 +88,8 @@ def zero_lag(mesh, dtype, cfg: NewtonConfig):
     """Invalid-but-shape-correct lag carry for State.lag_op:
     (ok, age, vals, a_diag, A_inv, floor, floor_age) with ok=False, in the
     mesh's operator format (raises for the matrix-free operator, which has
-    no values to carry)."""
+    no values to carry).  Only 'two_level' carries a coarse inverse: the
+    carry never holds an 'mg' hierarchy (freeze turns the carry off)."""
     dev = mesh.nodes.device
     vals = torch.zeros(res.operator_values_shape(mesh), dtype=dtype, device=dev)
     a_diag = torch.zeros(mesh.n_nodes, dtype=dtype, device=dev)
@@ -100,15 +102,15 @@ def zero_lag(mesh, dtype, cfg: NewtonConfig):
 
 
 def check_config(cfg: NewtonConfig):
-    """Raise NotImplementedError for the options the port does not have yet."""
-    if cfg.precond not in ("two_level", "jacobi"):
-        raise NotImplementedError(
-            f"precond={cfg.precond!r}: the multilevel preconditioner is "
-            "not ported yet (ROADMAP, still to port, item 3)")
+    """Raise ValueError for an unknown preconditioner and
+    NotImplementedError for the options the port does not have yet."""
+    if cfg.precond not in pc.PRECONDITIONERS:
+        raise ValueError(f"precond must be one of {pc.PRECONDITIONERS}, "
+                         f"got {cfg.precond!r}")
     if cfg.differentiable:
         raise NotImplementedError(
             "differentiable=True: the implicit-function adjoint is not "
-            "ported yet (ROADMAP, still to port, item 6)")
+            "ported yet (ROADMAP, still to port, item 2)")
 
 
 def newton_solve(N_init, pre, mesh, dirichlet, dirichlet_value, params,
@@ -212,8 +214,14 @@ def newton_solve(N_init, pre, mesh, dirichlet, dirichlet_value, params,
                     if use_two_level
                     else pc.make_jacobi(a_diag, dirichlet, tiny))
         else:
-            minv = pc.make_preconditioner(cfg.precond, mesh, dirichlet, a_diag,
-                                          cfg.coarse_block, vals=vals, J_c=J_c)
+            # mg smooths with ``matvec``, the regularized operator CG gets:
+            # the cycle is SPD only with that exact operator
+            minv = pc.make_preconditioner(
+                cfg.precond, mesh, dirichlet, a_diag, cfg.coarse_block,
+                vals=vals, J_c=J_c, matvec=matvec, mg_omega=cfg.mg_omega,
+                mg_smoother=cfg.mg_smoother, mg_cheb_deg=cfg.mg_cheb_deg,
+                mg_cheb_frac=cfg.mg_cheb_frac, mg_cycle=cfg.mg_cycle,
+                mg_smooth_p=cfg.mg_smooth_p)
         dN, lin_info = lin_solve(matvec, s["r"], minv, rtol=cfg.lin_rtol,
                                  atol=0.1 * atol_eff, maxiter=cfg.lin_maxiter)
         a = cfg.relaxation

@@ -1,15 +1,15 @@
-"""Preconditioners for the Newton linear solves: Jacobi and the additive
-two-level (Jacobi + Galerkin coarse correction over contiguous aggregates).
+"""Preconditioners for the Newton linear solves: Jacobi, the additive
+two-level (Jacobi + Galerkin coarse correction over contiguous aggregates)
+and the multilevel V-cycle 'mg' (solve/mg.py).
 
-Port of shakti_tpu/solve/precond.py.  The coarse operator is rebuilt from
-the folded values where they tile the aggregates
+Port of shakti_tpu/solve/precond.py (single device).  The two-level coarse
+operator is rebuilt from the folded values where they tile the aggregates
 (:func:`coarse_from_values`: always for ELL and block-CSR, whose values are
 stored entry by entry (fem/ell.py); for block-ELL when the aggregate is a
 multiple of the block edge or divides it), else from the element blocks
 (:func:`coarse_inverse`, also the matrix-free operator's).  Every aggregate
 sum is a deterministic gather over a host-built plan, cached per
-(structure, block), not an atomic scatter.  The multilevel
-preconditioner ('mg') is not ported yet (ROADMAP).
+(structure, block), not an atomic scatter.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ import torch
 
 from shakti_tpu_torch.fem.ops import (chunked_plan, chunked_sum, gather_plan,
                                       plan_sum)
+PRECONDITIONERS = ("jacobi", "two_level", "mg")
 
 
 def make_jacobi(a_diag, dirichlet, tiny):
@@ -29,9 +30,10 @@ def make_jacobi(a_diag, dirichlet, tiny):
     return lambda r: minv * r
 
 
-def _regularized_inverse(A_c, m, dtype, tiny):
-    # regularize empty / fully-constrained aggregates, then invert once:
-    # the per-Krylov-iteration apply is one small matvec
+def regularized_inverse(A_c, m, dtype, tiny):
+    """Inverse of a dense coarse operator with 1e-8 * mean|diag| added to
+    its diagonal (empty or fully constrained aggregates), inverted once so
+    that each apply is one small matvec."""
     dmean = torch.mean(torch.abs(torch.diagonal(A_c))) + tiny
     A_c = A_c + (1e-8 * dmean) * torch.eye(m, dtype=dtype, device=A_c.device)
     return torch.linalg.inv(A_c)
@@ -137,7 +139,7 @@ def coarse_inverse(J_c, mesh, dirichlet, block: int = 64):
     flat = -J_c * (wc[:, :, None] * wc[:, None, :])
     slots, idx = _device_coarse_plan(mesh, block, elements=True)
     A_c = plan_sum(flat, slots, idx, m * m).reshape(m, m)
-    return _regularized_inverse(A_c, m, dtype, torch.finfo(dtype).tiny)
+    return regularized_inverse(A_c, m, dtype, torch.finfo(dtype).tiny)
 
 
 def coarse_from_values(vals, mesh, dirichlet, block: int = 64):
@@ -169,7 +171,7 @@ def coarse_from_values(vals, mesh, dirichlet, block: int = 64):
             s = masked.reshape(NB * KB, sb, block, sb, block).sum(dim=(2, 4))
         A_c = plan_sum(s, *_device_coarse_plan(mesh, block), m * m)
     A_c = A_c.reshape(m, m)
-    return _regularized_inverse(A_c, m, dtype, torch.finfo(dtype).tiny)
+    return regularized_inverse(A_c, m, dtype, torch.finfo(dtype).tiny)
 
 
 def two_level_from_inverse(A_inv, a_diag, dirichlet, block: int, n: int):
@@ -191,10 +193,26 @@ def two_level_from_inverse(A_inv, a_diag, dirichlet, block: int, n: int):
 
 
 def make_preconditioner(name: str, mesh, dirichlet, a_diag,
-                        coarse_block: int = 64, *, vals=None, J_c=None):
-    """'jacobi', or the additive 'two_level' for A = -J with its coarse
+                        coarse_block: int = 64, *, vals=None, J_c=None,
+                        matvec=None, mg_omega: float = 0.8,
+                        mg_smoother: str = "jacobi", mg_cheb_deg: int = 2,
+                        mg_cheb_frac: float = 0.25, mg_cycle: str = "v",
+                        mg_smooth_p: float = 0.0):
+    """'jacobi'; the additive 'two_level' for A = -J with its coarse
     operator built from the folded ``vals`` where they tile the aggregates,
-    else from the element blocks ``J_c``."""
+    else from the element blocks ``J_c``; or the multilevel 'mg' V-cycle
+    (solve/mg.py) from ``J_c`` and the fine ``matvec`` the Krylov solver
+    gets, which becomes 'two_level' on a mesh without a hierarchy (at or
+    below mg_coarse_cap nodes)."""
+    if name == "mg":
+        if mesh.mg is not None:
+            from shakti_tpu_torch.solve.mg import make_multilevel
+            return make_multilevel(J_c, mesh, dirichlet, a_diag, matvec,
+                                   omega=mg_omega, smoother=mg_smoother,
+                                   cheb_deg=mg_cheb_deg,
+                                   cheb_frac=mg_cheb_frac, cycle=mg_cycle,
+                                   smooth_p=mg_smooth_p)
+        name = "two_level"
     if name == "two_level":
         if vals is not None and vals_coarse_ok(mesh, coarse_block):
             A_inv = coarse_from_values(vals, mesh, dirichlet, coarse_block)
@@ -204,6 +222,5 @@ def make_preconditioner(name: str, mesh, dirichlet, a_diag,
                                       mesh.n_nodes)
     if name == "jacobi":
         return make_jacobi(a_diag, dirichlet, torch.finfo(a_diag.dtype).tiny)
-    raise NotImplementedError(
-        f"preconditioner {name!r}: the multilevel V-cycle ('mg') is not "
-        "ported yet (ROADMAP, still to port, item 3)")
+    raise ValueError(f"preconditioner must be one of {PRECONDITIONERS}, "
+                     f"got {name!r}")

@@ -102,7 +102,9 @@ def test_cuda_request_without_gpu_raises(monkeypatch, tmp_path):
 @pytest.mark.parametrize("what", ["operator", "mg", "differentiable"])
 def test_unported_options_raise(what):
     """What stays unported raises NotImplementedError naming its ROADMAP
-    item; an unknown operator name raises ValueError."""
+    item; an unknown operator or preconditioner name raises ValueError.
+    precond='mg' is ported: it solves, and the name next to it ('amg')
+    is unknown."""
     import dataclasses
     md = tslab.initialize(nx=4, ny=4, days=1.0, nt_per_day=4)
     md.device, md.dtype = "cpu", torch.float64
@@ -111,8 +113,14 @@ def test_unported_options_raise(what):
         with pytest.raises(ValueError, match="md.operator"):
             md.solve(progress=False)
         return
-    md.solver = dataclasses.replace(md.solver, **(
-        {"precond": "mg"} if what == "mg" else {"differentiable": True}))
+    if what == "mg":
+        md.solver = dataclasses.replace(md.solver, precond="mg")
+        assert md.solve(progress=False)["steps"] == 4
+        md.solver = dataclasses.replace(md.solver, precond="amg")
+        with pytest.raises(ValueError, match="precond"):
+            md.solve(progress=False)
+        return
+    md.solver = dataclasses.replace(md.solver, differentiable=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         md.solve(progress=False)
 
