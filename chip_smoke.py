@@ -88,7 +88,23 @@ Phases (any failure raises: exit code != 0 and no result line):
      than the certified rates allow; Q_out against Q_src; a segmented
      march killed after one 64-attempt segment and resumed ends bit-identical
      to the uninterrupted one; the CLI's --steady writes steady.npz and
-     steady_info.json.
+     steady_info.json;
+ 15. polish: the monolithic coupled steady Newton (solve/monolithic.py,
+     float64, dense LU of the colored Jacobian): (a) steady_polish(tol 1e-6)
+     from phase 14's slab PTC state (marched here when phase 14 is not run):
+     converged, rate_b < 1e-6, resN_rel < 1e-7, n_fixed > 0, dtau_seed=None
+     agreeing to rtol 1e-6, 10 hourly transient steps moving the free gap
+     less than 1e-3 of a year's worth; (b) SHMIP A1 at suite-S width
+     (setup_shmip 60 x 12, 793 nodes, block-ELL) through
+     solve_steady(tol 1e-3, max_steps 300, polish=True): verdict polished,
+     rate < 1e-3, Q_out against Q_src within 1e-6, relN over x in [30, 90]
+     km against oracle/shmip_oracle.steady_profile within 5e-4; bell_spmv
+     launched by that run; PTC steps and polish Newton iterations beside the
+     JAX package's on the CPU, the colors, peak memory, and (torch.profiler
+     over the same polish, repeated from the march's state: bit-identical)
+     launches, device time and host syncs per Newton iteration split into
+     Jacobian, LU and Armijo; a polish killed after its first segment and
+     resumed from polish.npz ends bit-identical.
 The line before the last is a JSON object with the kernels' numbers; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -1195,6 +1211,261 @@ def phase_steady(dev, tmp):
     if files != ["steady.npz", "steady_info.json"]:
         raise RuntimeError(f"cli --steady files {files}")
     res["resume_equal"] = same
+    return res, (md, out["state"])
+
+
+# the JAX package's counts for phase 15's calls, float64 on the CPU (ELL,
+# the JAX package's choice there): tests/test_monolithic.py's slab polish and
+# scripts/shmip_validate.py's A1 call capped at 300 PTC steps
+JAX_SLAB_POLISH = dict(newton=3, n_fixed=17, refreshes=2)
+JAX_A1 = dict(steps=300, newton_total=1110, cg_total=119609, polish_newton=16)
+RELN_A1_SHMIP_MD = 3.36e-4          # SHMIP.md, suite S, A1 polished
+LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+            "cuLaunchKernelEx")
+SHMIP_A1_KW = dict(tol=1e-3, max_steps=300, strict=False, polish=True,
+                   polish_max_newton=6000, polish_patience=3,
+                   polish_max_wall_s=600)
+
+
+class Killed(Exception):
+    """Raised in place of a polish segment, to kill a march between two."""
+
+
+def range_cost(prof, name):
+    """(launches, device ms, host ms, host syncs) inside the record_function
+    ranges called ``name``: the runtime launch calls and item reads in
+    their subtrees, the device time of the kernels those launched, the
+    ranges' host time (profiled)."""
+    from torch.autograd import DeviceType
+    tops = [e for e in prof.events()
+            if e.name == name and e.device_type == DeviceType.CPU]
+    launches = syncs = 0
+    stack = list(tops)
+    while stack:
+        e = stack.pop()
+        launches += e.name in LAUNCHES
+        syncs += e.name == "aten::_local_scalar_dense"
+        stack.extend(e.cpu_children)
+    return (launches, sum(e.device_time_total for e in tops) / 1e3,
+            sum(e.cpu_time_total for e in tops) / 1e3, syncs)
+
+
+def slab_polish(dev, slab):
+    """Phase 15 (a): steady_polish from the slab's PTC state."""
+    import dataclasses
+
+    from shakti_tpu_torch.solve import monolithic
+    from shakti_tpu_torch.solve.newton import zero_lag
+    from shakti_tpu_torch.solve.timestep import make_step_fn
+    md, ptc_state = slab
+    mesh, static, _, cfg = md.freeze()
+    t0 = time.perf_counter()
+    state, info = monolithic.steady_polish(mesh, static, md.params, ptc_state,
+                                           tol=1e-6)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    s2, _ = monolithic.steady_polish(mesh, static, md.params, ptc_state,
+                                     tol=1e-6, dtau_seed=None)
+    pure = float(torch.max(torch.abs(s2.N - state.N) / torch.abs(state.N)))
+    step = make_step_fn(mesh, static, md.params, cfg)
+    s = dataclasses.replace(state, lag_op=zero_lag(mesh, state.N.dtype, cfg)
+                            if cfg.lag_operator else None)
+    b0 = s.b
+    free = ((~static.dirichlet) & (b0 > static.b_min * (1 + 1e-9))).double()
+    for _ in range(10):
+        s, d = step(s, torch.as_tensor(3600.0, dtype=torch.float64, device=dev))
+        if not d["converged"]:
+            raise RuntimeError("slab polish oracle: a transient step failed")
+    relb = float(torch.linalg.vector_norm((s.b - b0) * free)
+                 / torch.linalg.vector_norm(b0 * free))
+    limit = 1e-3 * 10 * 3600.0 / 3.1536e7 + 1e-9
+    res = dict(newton=info["newton"], n_fixed=int(info["n_fixed"]),
+               refreshes=info["refreshes"], converged=bool(info["converged"]),
+               rate_b=float(info["rate_b"]), resN_rel=float(info["resN_rel"]),
+               wall_s=wall, pure_newton_max_rel_dN=pure, relb_10h=relb,
+               relb_limit=limit, jax_cpu=JAX_SLAB_POLISH)
+    log("  (a) slab 16 x 16 polish: " + json.dumps(res))
+    if not (res["converged"] and res["rate_b"] < 1e-6
+            and res["resN_rel"] < 1e-7 and res["n_fixed"] > 0
+            and pure <= 1e-6 and relb < limit):
+        raise RuntimeError(f"slab polish: {res}")
+    return res
+
+
+def phase_polish(dev, tmp, slab=None):
+    """Phase 15: (a) the slab polish, (b) SHMIP A1 through
+    solve_steady(polish=True) at suite-S width (bell_spmv checked against
+    its plain version on the A1 operator first, and no matvec of the run
+    through a plain version), its polish profiled and killed-and-resumed."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from shakti_tpu_torch.api import steady as steady_api
+    from shakti_tpu_torch.ops import spmv_cuda
+    from shakti_tpu_torch.setups import setup_shmip, setup_slab
+    from shakti_tpu_torch.solve import monolithic
+    t_phase = time.perf_counter()
+    if slab is None:
+        md = setup_slab.initialize(nx=16, ny=16)
+        md.device, md.dtype = dev, torch.float64
+        slab = (md, md.solve_steady(tol=2e-2, max_steps=1600)["state"])
+    res = {"slab": slab_polish(dev, slab)}
+
+    # (b) the main path: the march and the polish, the polish's arguments
+    # observed on their way (for the profile and the resume below)
+    md = setup_shmip.initialize("A1", nx=60, ny=12, days=30, nt_per_day=24)
+    md.device, md.dtype = dev, torch.float64
+    # bell_spmv against its plain version at the operator this path gives it
+    from shakti_tpu_torch.fem.bell import bell_from_elements
+    m, st = md.freeze(dev)[:2]
+    inp = operator_inputs(m, st.dirichlet, np.random.default_rng(2))
+    a1_err = {}
+    for dtype, rtol, atol_rel in TOLS:
+        dt = str(dtype).removeprefix("torch.")
+        vals = bell_from_elements(inp["J"].to(dtype), m)
+        x, extra = inp["x"].to(dtype), inp["extra"].to(dtype)
+        for epi, (d, e) in (("product", (None, None)),
+                            ("epilogue", (st.dirichlet, extra))):
+            a1_err[f"{dt} {epi}"] = check_operator(
+                f"SHMIP A1 n={m.n_nodes} {dt} {epi}", vals, m, x, d, e, rtol,
+                atol_rel)
+    log(f"  SHMIP A1 operator (n={m.n_nodes}): bell_spmv against its plain "
+        f"version, max abs err {json.dumps(a1_err)}")
+    del m, st, inp, vals, x, extra
+
+    seen, plain_calls = {}, {"ell": 0, "bell": 0}
+    real = steady_api.steady_polish
+    real_plain = spmv_cuda.ell_operator_plain, spmv_cuda.bell_operator_plain
+
+    def observed(*args, **kw):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = real(*args, **kw)
+        torch.cuda.synchronize(dev)
+        seen.update(args=args, kw=kw, wall=time.perf_counter() - t0)
+        return out
+
+    def counted(name, fn):
+        def wrapped(*a, **k):
+            plain_calls[name] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    steady_api.steady_polish = observed
+    spmv_cuda.ell_operator_plain = counted("ell", real_plain[0])
+    spmv_cuda.bell_operator_plain = counted("bell", real_plain[1])
+    torch.cuda.reset_peak_memory_stats(dev)
+    spmv_cuda.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        out = md.solve_steady(**SHMIP_A1_KW)
+        torch.cuda.synchronize(dev)
+    finally:
+        steady_api.steady_polish = real
+        spmv_cuda.ell_operator_plain, spmv_cuda.bell_operator_plain = real_plain
+    wall = time.perf_counter() - t0
+    launches = dict(spmv_cuda.launches)
+    info = out["info"]
+    p = importlib.util.spec_from_file_location(
+        "shmip_oracle", os.path.join(HERE, "oracle", "shmip_oracle.py"))
+    oracle = importlib.util.module_from_spec(p)
+    p.loader.exec_module(oracle)
+    prof_a1 = oracle.steady_profile("A1")
+    win = (md.x > 30e3) & (md.x < 90e3)
+
+    def rel(field):
+        ref = np.interp(md.x, prof_a1["x"], prof_a1[field])[win]
+        return float(np.linalg.norm(out[field][win] - ref)
+                     / np.linalg.norm(ref))
+
+    mesh, args = seen["args"][0], seen["args"]
+    a1 = dict(verdict=info["verdict"], steps=info["steps"],
+              newton_total=info["newton_total"], cg_total=info["cg_total"],
+              polish_newton=info["polish_newton"], rate=info["rate"],
+              polish_resN=info["polish_resN"], wall_s=wall,
+              ptc_s=wall - seen["wall"], polish_s=seen["wall"],
+              ms_per_ptc_step=1e3 * (wall - seen["wall"]) / info["steps"],
+              ms_per_newton=1e3 * seen["wall"] / info["polish_newton"],
+              Q_out=out["Q_out"], Q_src=out["Q_src"],
+              budget_gap=abs(out["Q_out"] - out["Q_src"]) / abs(out["Q_src"]),
+              relN=rel("N"), relN_shmip_md=RELN_A1_SHMIP_MD, relb=rel("b"),
+              n=mesh.n_nodes, colors=monolithic._coloring_plan(mesh)[4],
+              peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+              launches=launches, plain_calls=plain_calls,
+              operator_max_abs_err=a1_err, jax_cpu=JAX_A1)
+    log("  (b) SHMIP A1 60 x 12: " + json.dumps(a1))
+    if not (info["verdict"] == "polished" and info["rate"] < 1e-3
+            and a1["budget_gap"] < 1e-6 and a1["relN"] <= 5e-4
+            and launches["bell_spmv"] > 0 and not any(plain_calls.values())):
+        raise RuntimeError(f"SHMIP A1 polish: {a1}")
+
+    # the same polish again from the march's state, under the profiler
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pstate, pinfo = monolithic.steady_polish(*args, **seen["kw"])
+        torch.cuda.synchronize(dev)
+        pwall = time.perf_counter() - t0
+    newton = pinfo["newton"]
+    same = dict(N=bitwise_equal(pstate.N, out["state"].N),
+                b=bitwise_equal(pstate.b, out["state"].b),
+                newton=newton == info["polish_newton"])
+    count = {e.key: e.count for e in prof.key_averages()}
+    # kernels and copies only: the ranges' device-side annotations span them
+    dev_ms = sum(e.device_time_total for e in prof.events()
+                 if e.device_type == DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False)
+                 and not e.name.startswith("polish.")) / 1e3
+    per = dict(launches=sum(count.get(k, 0) for k in LAUNCHES) / newton,
+               device_ms=dev_ms / newton,
+               syncs=count.get("aten::_local_scalar_dense", 0) / newton,
+               profiled_ms=1e3 * pwall / newton)
+    for part in ("jacobian", "lu", "armijo"):
+        n_l, ms, host, n_s = range_cost(prof, "polish." + part)
+        per[part] = dict(launches=n_l / newton, device_ms=ms / newton,
+                         host_ms=host / newton, syncs=n_s / newton)
+    a1["per_newton"] = per
+    a1["profiled_equal"] = same
+    log("  polish per Newton iteration (profiled, " + f"{newton} iterations"
+        "): " + json.dumps(per))
+    log(f"  profiled polish bit-identical to the main path's: {same}")
+    if not all(same.values()):
+        raise RuntimeError(f"repeated polish differs: {same}")
+
+    # killed after its first segment, then resumed from polish.npz
+    ck = os.path.join(tmp, "polish.npz")
+    step_fn, calls = monolithic.polish, []
+
+    def killed(*a, **k):
+        if calls:
+            raise Killed
+        calls.append(1)
+        return step_fn(*a, **k)
+
+    monolithic.polish = killed
+    try:
+        monolithic.steady_polish(*args, **dict(seen["kw"], checkpoint=ck))
+        raise RuntimeError("the polish ended within one segment: nothing to "
+                           "resume")
+    except Killed:
+        pass
+    finally:
+        monolithic.polish = step_fn
+    if not os.path.exists(ck):
+        raise RuntimeError("no polish.npz after the first segment")
+    rstate, rinfo = monolithic.steady_polish(*args,
+                                             **dict(seen["kw"], checkpoint=ck))
+    resumed = dict(N=bitwise_equal(rstate.N, out["state"].N),
+                   b=bitwise_equal(rstate.b, out["state"].b),
+                   newton=rinfo["newton"] == info["polish_newton"],
+                   file_removed=not os.path.exists(ck))
+    log(f"  polish killed after one segment and resumed: {resumed}")
+    if not all(resumed.values()):
+        raise RuntimeError(f"resumed polish differs: {resumed}")
+    a1["resume_equal"] = resumed
+    res["a1"] = a1
+    res["wall_s"] = time.perf_counter() - t_phase
+    log(f"  phase 15: {res['wall_s']:.1f} s")
     return res
 
 
@@ -1208,7 +1479,7 @@ ELL_LINE_KEYS = tuple(k for k in LINE_KEYS if k != "host_us_composed")
 
 
 PHASES = ("kernel", "goldens", "main", "ell", "scale", "formats", "resume",
-          "bootstrap", "bicgstab", "mg", "steady")
+          "bootstrap", "bicgstab", "mg", "steady", "polish")
 
 
 def main(argv=None):
@@ -1251,7 +1522,7 @@ def main(argv=None):
     def stamp(name):
         log(f"[{name}] (t = {time.perf_counter() - t_start:.1f} s)")
 
-    kres = mres = sres = eres = gres = stres = None
+    kres = mres = sres = eres = gres = stres = pres = slab = None
     # ---- 3. bell_spmv vs plain at the bench shapes ----
     from shakti_tpu_torch.setups import setup_bench
     if "kernel" in phases:
@@ -1353,7 +1624,12 @@ def main(argv=None):
         # ---- 14. the steady state ----
         if "steady" in phases:
             stamp("steady: slab 16 x 16, float64, PTC")
-            stres = phase_steady(dev, tmp)
+            stres, slab = phase_steady(dev, tmp)
+
+        # ---- 15. the monolithic polish ----
+        if "polish" in phases:
+            stamp("polish: slab polish; SHMIP A1 60 x 12 steady with polish")
+            pres = phase_polish(dev, tmp, slab)
     stamp("done")
 
     if phases != list(PHASES):
@@ -1368,7 +1644,9 @@ def main(argv=None):
         "replaces": "shakti_tpu/ops/spmv_pallas.py:46",
         "launches": mres["launches"],
         "launches_mg_bench": gres["bench"]["bell"]["launches"]["bell_spmv"],
-        "launches_steady": stres["launches"]["bell_spmv"], "W": kres["W"],
+        "launches_steady": stres["launches"]["bell_spmv"],
+        "launches_shmip_a1": pres["a1"]["launches"]["bell_spmv"],
+        "W": kres["W"],
         **{k: f32[k] for k in LINE_KEYS}, "bound_by": f32["bound_by"],
         "float64": {k: kres["float64"][k] for k in LINE_KEYS}}, {
         "name": "ell_spmv", "route": "cuda",

@@ -10,8 +10,9 @@ order with its mass budget::
     N_steady, b_steady = out["N"], out["b"]
 
 The transient path is untouched (the semi-implicit gap update exists only
-here).  The monolithic polish (``polish=True``) is not ported yet and
-raises; the distributed path waits for the distributed port (ROADMAP).
+here).  ``polish=True`` hands the march's state to the monolithic coupled
+Newton (solve/monolithic.py); the distributed path waits for the
+distributed port (ROADMAP).
 """
 
 from __future__ import annotations
@@ -28,8 +29,10 @@ from shakti_tpu_torch.solve import diagnostics as diag
 from shakti_tpu_torch.solve.steady import (STATE_KEYS, YEAR, cycle_certify,
                                            make_steady_step, steady_carry_init,
                                            steady_info_from_carry, steady_solve)
+from shakti_tpu_torch.solve.monolithic import steady_polish
 
 PTC_FILE = "ptc.npz"
+POLISH_FILE = "polish.npz"
 
 
 def _save_carry(path, carry, fingerprint):
@@ -99,7 +102,9 @@ def _host(v):
 def solve_steady(md, *, tol=1e-2, t_ref=YEAR, dt0=None, dt_max=1e9,
                  max_steps=2000, max_rel_change=0.5, stab_safety=2.0,
                  budget=True, strict=True, cycle_window=0, polish=False,
-                 checkpoint=None, segment_steps=256):
+                 polish_max_newton=3000, polish_patience=3,
+                 polish_max_wall_s=float("inf"), checkpoint=None,
+                 segment_steps=256):
     """Solve the model to steady state (drift < ``tol`` per ``t_ref``) on
     md.device.
 
@@ -117,21 +122,29 @@ def solve_steady(md, *, tol=1e-2, t_ref=YEAR, dt0=None, dt_max=1e9,
     ``strict=False`` returns the plateau with ``info["converged"] = False``
     instead.  ``cycle_window > 0``: an unconverged march continues into
     solve/steady.cycle_certify, and a certified cycle returns the
-    cycle-mean fields with verdict ``"cycle"`` (no raise).  ``verdict`` is
-    ``"steady"``, ``"cycle"`` or ``"no"``.
+    cycle-mean fields with verdict ``"cycle"`` (no raise).
+
+    ``polish=True`` hands the march's state (plateau or certified) to
+    solve/monolithic.steady_polish, which solves the transient's own
+    fixed-point equations directly: on success the verdict is
+    ``"polished"``, the fields are the equation-level equilibrium and
+    ``info["rate"]`` its drift rate (``polish_*`` keys: rate_b, resN,
+    newton, converged).  When no fixed point is reached but the march
+    sampled enough pseudo-time, a stationary attractor centroid gives the
+    verdict ``"stationary"`` with the time-mean fields (``wander_rate``,
+    ``wander_amp_b``/``_N``, ``t_march_yr``); otherwise the cycle/plateau
+    logic proceeds.  ``polish_max_newton``, ``polish_patience`` and
+    ``polish_max_wall_s`` bound that march (total Newton iterations,
+    consecutive non-improving segments, host wall seconds).  ``verdict`` is
+    ``"polished"``, ``"steady"``, ``"stationary"``, ``"cycle"`` or ``"no"``.
 
     ``checkpoint``: a directory; the march then runs in segments of
     ``segment_steps`` attempts, saving its carry to ``<dir>/ptc.npz`` after
     each (this package's file: keyed by carry entry, not the JAX package's
     leaf order), and a call with the same directory resumes.  The file is
-    removed on a conclusive verdict.
-
-    ``polish=True`` (the monolithic coupled Newton) is not ported yet and
-    raises NotImplementedError."""
-    if polish:
-        raise NotImplementedError(
-            "polish=True: the monolithic coupled Newton (solve/monolithic.py)"
-            " is not ported yet (ROADMAP, still to port, item 1)")
+    removed on a conclusive verdict; the polish checkpoints each of its
+    segments to ``<dir>/polish.npz`` (the JAX package's file and keys),
+    removed likewise."""
     md.validate(require_timesteps=False)
     if dt0 is None:
         dt0 = 3600.0
@@ -159,8 +172,37 @@ def solve_steady(md, *, tol=1e-2, t_ref=YEAR, dt0=None, dt_max=1e9,
     info = {k: _host(v) for k, v in dinfo.items()}
     info["converged"] = bool(dinfo["converged"])
 
+    polished = stationary = False
+    if polish:
+        p_state, pinfo = steady_polish(
+            mesh, static, md.params, state, tol=tol, t_ref=t_ref,
+            armijo_cuts=13, max_newton_total=polish_max_newton,
+            patience=polish_patience, max_wall_s=polish_max_wall_s,
+            checkpoint=(os.path.join(checkpoint, POLISH_FILE)
+                        if checkpoint else None))
+        info["polish_rate_b"] = float(pinfo["rate_b"])
+        info["polish_resN"] = float(pinfo["resN_rel"])
+        info["polish_newton"] = int(pinfo["newton"])
+        info["polish_converged"] = bool(pinfo["converged"])
+        if info["polish_converged"]:
+            polished = True
+            state = p_state
+            info["converged"] = True
+            info["rate"] = info["polish_rate_b"]
+        elif "wander_rate" in pinfo:
+            # no fixed point, but the implicit march sampled enough
+            # pseudo-time to judge the attractor: a stationary centroid
+            # certifies the regime, and the time mean is the output
+            info["wander_rate"] = float(pinfo["wander_rate"])
+            info["wander_amp_b"] = float(pinfo["wander_amp_b"])
+            info["wander_amp_N"] = float(pinfo["wander_amp_N"])
+            info["t_march_yr"] = float(pinfo["t_march"]) / YEAR
+            if info["wander_rate"] < tol:
+                stationary = True
+                state = pinfo["mean_state"]
+
     certified_cycle = False
-    if not info["converged"] and cycle_window:
+    if not info["converged"] and not stationary and cycle_window:
         mean_state, cinfo = cycle_certify(
             step, state, params=md.params, dt=dinfo["dt"], tol=tol,
             t_ref=t_ref, window=cycle_window, max_rel_change=max_rel_change,
@@ -175,7 +217,9 @@ def solve_steady(md, *, tol=1e-2, t_ref=YEAR, dt0=None, dt_max=1e9,
         info["cg_total"] += int(cinfo["cg_total"])
         if certified_cycle:
             state = mean_state
-    info["verdict"] = ("steady" if info["converged"]
+    info["verdict"] = ("polished" if polished
+                       else "steady" if info["converged"]
+                       else "stationary" if stationary
                        else "cycle" if certified_cycle else "no")
     info["wall_s"] = round(time.time() - t0, 3)
 

@@ -1,13 +1,14 @@
 """Command-line launcher (reference source/main.py equivalent).
 
     python -m shakti_tpu_torch <setup> [--device cuda|cpu] [--resume] [--quiet]
-    python -m shakti_tpu_torch <setup> --steady [--steady-tol TOL]
+    python -m shakti_tpu_torch <setup> --steady [--steady-tol TOL] [--polish]
                                        [--cycle-window K] [--device ...]
 
 Imports the named setup module, calls its ``initialize()`` to get a
 ModelSetup of this package, and runs ``md.solve()`` on the chosen device,
-or with ``--steady`` ``md.solve_steady()``, which writes steady.npz and
-steady_info.json to ``<results_name>_steady/`` (the JAX package's files).
+or with ``--steady`` ``md.solve_steady()`` (``--polish``: followed by the
+monolithic coupled Newton), which writes steady.npz and steady_info.json to
+``<results_name>_steady/`` (the JAX package's files and keys).
 A bare name resolves first against this package's own setups
 (shakti_tpu_torch/setups/), then ./setups and the current directory; a
 path to a .py file is loaded as it is.  ``--device cuda`` (the default)
@@ -71,8 +72,10 @@ def main(argv=None):
     ap.add_argument("--steady-tol", type=float, default=1e-2, metavar="TOL",
                     help="steady drift tolerance per year (default 1e-2)")
     ap.add_argument("--polish", action="store_true",
-                    help="with --steady: the monolithic coupled Newton after "
-                         "the march (not ported yet: raises)")
+                    help="with --steady: after the PTC march, solve the "
+                         "coupled (N, b) steady system directly by "
+                         "monolithic Newton (certifies channelized regimes "
+                         "the staggered march plateaus on)")
     ap.add_argument("--cycle-window", type=int, default=0, metavar="K",
                     help="with --steady: if the drift certificate cannot "
                          "fire, march two windows of K accepted pseudo-steps "

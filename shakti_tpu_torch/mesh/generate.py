@@ -1,7 +1,8 @@
-"""Host-side structured mesh generator (numpy).
+"""Host-side mesh generators (numpy).
 
-The port's copy of shakti_tpu/mesh/generate.py:rectangle_mesh, which the
-built-in setups and the tests mesh with.
+The port's copy of shakti_tpu/mesh/generate.py: rectangle_mesh, which the
+built-in setups and the tests mesh with, and polygon_mesh (Delaunay over
+scipy.spatial), which the SHMIP valley suites E and F mesh with.
 """
 
 from __future__ import annotations
@@ -50,3 +51,85 @@ def rectangle_mesh(nx: int, ny: int, lx: float, ly: float,
     cells[0::2] = t1
     cells[1::2] = t2
     return nodes, cells
+
+
+def polygon_mesh(outline: np.ndarray, resolution: float, *, margin: float = 0.45,
+                 jitter: float = 0.0, seed: int = 0):
+    """Triangulate the interior of a polygon at roughly uniform ``resolution``.
+
+    Self-contained replacement for the reference's pygmsh polygon meshing
+    step (create_mesh.ipynb cell 17: outline points at 2 km resolution ->
+    plane surface -> triangles): boundary nodes resampled along the outline
+    at ~resolution spacing + interior nodes on a staggered (hex-ish) grid,
+    Delaunay-triangulated, keeping triangles whose centroid lies inside.
+    For production-grade meshes gmsh remains supported via mesh/msh_io.
+    """
+    from scipy.spatial import Delaunay
+
+    from shakti_tpu_torch.mesh.geometry import points_in_polygon
+
+    outline = np.asarray(outline, dtype=np.float64)
+    if np.allclose(outline[0], outline[-1]):
+        outline = outline[:-1]
+
+    # resample the boundary at ~resolution spacing
+    seg = np.diff(np.vstack([outline, outline[:1]]), axis=0)
+    seg_len = np.hypot(seg[:, 0], seg[:, 1])
+    bpts = []
+    for k in range(outline.shape[0]):
+        n_sub = max(1, int(np.ceil(seg_len[k] / resolution)))
+        for s in range(n_sub):
+            bpts.append(outline[k] + seg[k] * (s / n_sub))
+    bpts = np.asarray(bpts)
+
+    # staggered interior lattice, kept a margin away from the boundary
+    xmin, ymin = outline.min(axis=0) - resolution
+    xmax, ymax = outline.max(axis=0) + resolution
+    dy = resolution * np.sqrt(3) / 2
+    rows = []
+    y = ymin
+    j = 0
+    while y <= ymax:
+        xs = np.arange(xmin + (resolution / 2 if j % 2 else 0.0), xmax,
+                       resolution)
+        rows.append(np.column_stack([xs, np.full(xs.size, y)]))
+        y += dy
+        j += 1
+    grid = np.concatenate(rows)
+    if jitter > 0.0:
+        # perturb the interior lattice (deterministic) so the Delaunay
+        # connectivity is genuinely unstructured, like a gmsh frontal mesh
+        rng = np.random.default_rng(seed)
+        grid = grid + jitter * resolution * rng.uniform(-1, 1, grid.shape)
+    inside = points_in_polygon(grid, outline)
+    # drop interior points too close to boundary nodes
+    if bpts.size:
+        d2 = ((grid[:, None, :] - bpts[None, :, :]) ** 2).sum(-1).min(axis=1) \
+            if grid.shape[0] * bpts.shape[0] < 5e7 else _min_dist2_chunked(grid, bpts)
+        inside &= d2 > (margin * resolution) ** 2
+    nodes = np.vstack([bpts, grid[inside]])
+
+    tri = Delaunay(nodes)
+    cells = tri.simplices.astype(np.int32)
+    centroids = nodes[cells].mean(axis=1)
+    keep = points_in_polygon(centroids, outline)
+    # drop slivers (degenerate aspect) on the hull
+    p = nodes[cells]
+    area = 0.5 * np.abs((p[:, 1, 0] - p[:, 0, 0]) * (p[:, 2, 1] - p[:, 0, 1])
+                        - (p[:, 2, 0] - p[:, 0, 0]) * (p[:, 1, 1] - p[:, 0, 1]))
+    keep &= area > 1e-6 * resolution ** 2
+    cells = cells[keep]
+    # compact node numbering
+    used = np.unique(cells)
+    remap = -np.ones(nodes.shape[0], dtype=np.int64)
+    remap[used] = np.arange(used.size)
+    return nodes[used], remap[cells].astype(np.int32)
+
+
+def _min_dist2_chunked(grid, bpts, chunk=4096):
+    out = np.empty(grid.shape[0])
+    for i in range(0, grid.shape[0], chunk):
+        g = grid[i:i + chunk]
+        out[i:i + chunk] = ((g[:, None, :] - bpts[None, :, :]) ** 2).sum(-1).min(axis=1)
+    return out
+

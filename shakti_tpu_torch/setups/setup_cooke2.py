@@ -56,8 +56,8 @@ def initialize(days=10 * 365, nt_per_day=24, results_name="auto", seed=0):
         if path and os.path.exists(path):
             raise NotImplementedError(
                 f"{env}={path}: the netCDF/HDF5 dataset readers (data/netcdf.py,"
-                " data/lakes.py) are not ported yet (ROADMAP, still to port, "
-                "item 5); unset it for the synthetic fields")
+                " data/lakes.py) are not ported yet (ROADMAP, still to port: "
+                "the geo-data readers); unset it for the synthetic fields")
     lake_name = "Cook_E2"
     mesh_dir = os.environ.get("SHAKTI_MESH_DIR")
     msh_path = os.path.join(mesh_dir, f"{lake_name}_mesh.msh") if mesh_dir else None

@@ -109,8 +109,9 @@ def check_config(cfg: NewtonConfig):
                          f"got {cfg.precond!r}")
     if cfg.differentiable:
         raise NotImplementedError(
-            "differentiable=True: the implicit-function adjoint is not "
-            "ported yet (ROADMAP, still to port, item 2)")
+            "differentiable=True: the implicit-function adjoint "
+            "(solve/implicit.py) is not ported yet (ROADMAP, still to port: "
+            "implicit)")
 
 
 def newton_solve(N_init, pre, mesh, dirichlet, dirichlet_value, params,

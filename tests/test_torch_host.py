@@ -119,6 +119,44 @@ def test_points_in_polygon(name, rings):
     assert 0 < got.sum() < got.size
 
 
+def _valley_outline():
+    """The SHMIP valley footprint (setups/setup_shmip.valley_outline's shape,
+    built here so that the test needs neither setup)."""
+    x = np.linspace(0.0, 0.985 * 6e3, 80)
+    w = np.maximum(40.0 + 900.0 * np.sqrt(x / 6e3) * (1.0 - x / 6e3), 40.0)
+    return np.vstack([np.column_stack([x, w]),
+                      np.column_stack([x[::-1], -w[::-1]])])
+
+
+@pytest.mark.parametrize("outline,resolution,kw", [
+    ("valley", 75.0, {"jitter": 0.2, "seed": 0}),
+    ("valley", 150.0, {}),
+    ("closed square", 0.1, {"margin": 0.3, "jitter": 0.1, "seed": 4})])
+def test_polygon_mesh(outline, resolution, kw):
+    """Delaunay meshes of a polygon's interior (the SHMIP valley suites'
+    mesher): a jittered and a plain lattice, and a unit square given with its
+    closing vertex repeated; nodes and cells equal."""
+    poly = (_valley_outline() if outline == "valley" else
+            np.array([[0, 0], [1, 0], [1, 1], [0, 1], [0, 0]], float))
+    jn, jc = jgen.polygon_mesh(poly, resolution, **kw)
+    tn, tc = tgen.polygon_mesh(poly, resolution, **kw)
+    np.testing.assert_array_equal(tn, jn)
+    np.testing.assert_array_equal(tc, jc)
+    assert tc.dtype == jc.dtype and tc.shape[0] > 50
+
+
+def test_min_dist2_chunked():
+    """The chunked nearest-boundary distance (polygon_mesh's path for large
+    lattices), with a chunk that does not divide the points."""
+    rng = np.random.default_rng(5)
+    grid, bpts = rng.standard_normal((1000, 2)), rng.standard_normal((70, 2))
+    got = tgen._min_dist2_chunked(grid, bpts, chunk=96)
+    np.testing.assert_array_equal(got, jgen._min_dist2_chunked(grid, bpts,
+                                                               chunk=96))
+    np.testing.assert_allclose(
+        got, ((grid[:, None] - bpts[None]) ** 2).sum(-1).min(1), rtol=1e-15)
+
+
 @pytest.mark.parametrize("name", MESHES)
 def test_grid_interpolator(name):
     """A seeded grid with a descending y axis, cropped like

@@ -9,9 +9,11 @@ shakti_tpu's, in float64 on the CPU:
 - a segmented march killed after its first segments and resumed ends bit
   for bit where the uninterrupted march ends, and a checkpoint of another
   mesh is refused;
-- an exhausted budget raises ConvergenceError carrying the state; polish
-  raises NotImplementedError;
-- the CLI's --steady writes steady.npz and steady_info.json with JAX's keys;
+- an exhausted budget raises ConvergenceError carrying the state, with
+  the polish too when it reaches no fixed point; polish=True takes JAX's
+  polish keywords and returns JAX's info keys and verdict;
+- the CLI's --steady (and --steady --polish) writes steady.npz and
+  steady_info.json with JAX's keys;
 - the three diagnostics against JAX's on the lake golden case.
 """
 
@@ -164,9 +166,45 @@ def test_exhausted_budget_raises_with_state():
     assert rel_err(err.state.N.numpy(), np.asarray(ej.value.state.N)) <= 1e-8
 
 
-def test_polish_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _tmd().solve_steady(polish=True)
+def test_polish_raises(monkeypatch):
+    """A polish stopped by its Newton budget short of a fixed point, after a
+    march that certified nothing, leaves the verdict "no": solve_steady then
+    raises ConvergenceError carrying the state and the polish's info keys
+    (the polish runs before the strict raise, as in JAX).  Its segments are
+    cut to one Newton iteration, so that the budget of one ends it."""
+    real = tapi.steady_polish
+    monkeypatch.setattr(tapi, "steady_polish",
+                        lambda *a, **k: real(*a, **dict(k, max_newton=1)))
+    with pytest.raises(ConvergenceError) as e:
+        _tmd(6).solve_steady(tol=1e-8, max_steps=3, polish=True,
+                             polish_max_newton=1)
+    info = e.value.info
+    assert info["verdict"] == "no" and not info["converged"]
+    assert info["steps"] == 3
+    assert info["polish_newton"] == 1 and not info["polish_converged"]
+    assert "wander_rate" not in info
+    assert torch.isfinite(e.value.state.N).all()
+
+
+def test_polish_matches_jax():
+    """JAX's polish keywords are accepted, and the march (certified at tol
+    0.1) followed by the polish gives JAX's verdict, info keys, counts and
+    state on the 8x8 slab.  (From a march capped far from steady the polish
+    runs a long backtracking march, along which roundoff grows by orders of
+    magnitude per ten iterations: no parity case.)"""
+    kw = dict(tol=0.1, max_steps=1600, polish=True, polish_max_newton=500,
+              polish_patience=2, polish_max_wall_s=600.0)
+    tout, jout = _tmd(8).solve_steady(**kw), _jmd(8).solve_steady(**kw)
+    ti, ji = tout["info"], jout["info"]
+    assert set(ti) == set(ji)
+    assert {"polish_rate_b", "polish_resN", "polish_newton",
+            "polish_converged"} <= set(ti)
+    assert ti["verdict"] == ji["verdict"] == "polished"
+    for k in ("steps", "polish_newton", "polish_converged", "newton_total"):
+        assert ti[k] == ji[k], k
+    assert ti["rate"] == ti["polish_rate_b"] < kw["tol"]
+    for k in ("N", "b"):
+        assert rel_err(tout[k], jout[k]) <= 1e-8, k
 
 
 def _wrapper(path, pkg, rdir):
@@ -208,9 +246,22 @@ def test_cli_steady_writes_the_jax_files(tmp_path, capsys):
     # the same summary lines (the wall time aside)
     strip = [ln.split(", wall")[0] for ln in ttext.splitlines()[:3]]
     assert strip == [ln.split(", wall")[0] for ln in jtext.splitlines()[:3]]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmain([str(tmp_path / "wt.py"), "--device", "cpu", "--steady",
-               "--polish", "--quiet"])
+    # --polish: the polished verdict, JAX's files and keys
+    jp, tp = tmp_path / "jax_polish", tmp_path / "torch_polish"
+    args = [*args, "--polish"]
+    assert jmain([_wrapper(tmp_path / "wjp.py", "jax", jp), *args]) == 0
+    assert tmain([_wrapper(tmp_path / "wtp.py", "torch", tp), "--device",
+                  "cpu", *args]) == 0
+    capsys.readouterr()
+    ji = json.load(open(os.path.join(f"{jp}_steady", "steady_info.json")))
+    ti = json.load(open(os.path.join(f"{tp}_steady", "steady_info.json")))
+    assert set(ti) == set(ji) and ti["verdict"] == ji["verdict"] == "polished"
+    assert ti["polish_newton"] == ji["polish_newton"]
+    jz, tz = np.load(os.path.join(f"{jp}_steady", "steady.npz")), \
+        np.load(os.path.join(f"{tp}_steady", "steady.npz"))
+    assert sorted(tz.files) == sorted(jz.files) == ["N", "b", "qx", "qy"]
+    for k in jz.files:
+        assert rel_err(tz[k], jz[k]) <= 1e-8, k
 
 
 def test_diagnostics_match_jax():
