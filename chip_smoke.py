@@ -104,7 +104,28 @@ Phases (any failure raises: exit code != 0 and no result line):
      over the same polish, repeated from the march's state: bit-identical)
      launches, device time and host syncs per Newton iteration split into
      Jacobian, LU and Armijo; a polish killed after its first segment and
-     resumed from polish.npz ends bit-identical.
+     resumed from polish.npz ends bit-identical;
+ 16. adjoint: the differentiable transient (solve/implicit.py) on the bench
+     model in float64 with a uniform 1e-8 m/s recharge, lag off,
+     differentiable=True and tests/test_adjoint.py's tight tolerances, 6
+     hourly steps: the forward bitwise equal to differentiable=False;
+     d mean(N)/d inputs_scale and, through make_runner, the gradient with
+     respect to the (n,) inputs field along a seeded direction, each within
+     rel 1e-5 of a central difference; every backward matvec a bell_spmv
+     launch on the transposed operator (none through a plain version), the
+     last one held against its plain version; adjoint CG counts, forward
+     and backward ms per step, peak memory;
+ 17. ensemble: the bench model in float32, M = 8 members of
+     perturbed_ensemble(b_scale 5e-4, seed 0), 24 hourly steps through
+     make_ensemble_runner: converged, finite, every matvec one
+     member-batched bell_spmv launch (none through a plain version);
+     members 0 and 7 run alone give equal Newton counts and N within 1e-4
+     of scale; in float64, M = 3 over 4 steps equals the member runs within
+     1e-10; the batched launch (M = 8 f32, M = 3 f64) bitwise equal to M
+     single launches and within phase 3's tolerances of the plain version,
+     with its device time beside 8 single launches, the plain version, a
+     block-diagonal torch sparse CSR mv of the 8 operators and its bytes
+     bound; ms per step and per member-step beside the members' own runs.
 The line before the last is a JSON object with the kernels' numbers; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -1469,6 +1490,423 @@ def phase_polish(dev, tmp, slab=None):
     return res
 
 
+class counted_plain:
+    """Counts the calls of the plain operators (ops/spmv_cuda.py) while
+    active: a CUDA run must make none."""
+
+    NAMES = ("bell_operator_plain", "ell_operator_plain",
+             "bell_operator_batched_plain")
+
+    def __enter__(self):
+        from shakti_tpu_torch.ops import spmv_cuda
+        self.mod, self.calls = spmv_cuda, dict.fromkeys(self.NAMES, 0)
+        self.real = {k: getattr(spmv_cuda, k) for k in self.NAMES}
+
+        def counted(name, fn):
+            def wrapped(*a, **k):
+                self.calls[name] += 1
+                return fn(*a, **k)
+            return wrapped
+        for k, fn in self.real.items():
+            setattr(spmv_cuda, k, counted(k, fn))
+        return self.calls
+
+    def __exit__(self, *exc):
+        for k, fn in self.real.items():
+            setattr(self.mod, k, fn)
+
+
+def sync_s(dev, t0):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return time.perf_counter() - t0
+
+
+# the adjoint's settings: tests/test_adjoint.py's tight solves (the gradient
+# is exact only where F(N*) = 0 holds to roundoff), no operator carry
+ADJOINT_SOLVER = dict(adaptive_dt_levels=0, lag_operator=False, rtol=1e-12,
+                      atol=1e-13, lin_rtol=1e-12, differentiable=True)
+FD_RTOL = 1e-5
+
+
+def phase_adjoint(dev, md=None, steps=6):
+    """Phase 16: the differentiable transient at full width.  The bench
+    model in float64, lag off, differentiable=True, ``steps`` hourly steps:
+    the forward bitwise equal to differentiable=False; d mean(N)/d
+    inputs_scale and, through make_runner, the gradient with respect to the
+    (n,) inputs field, each against a central difference (rel FD_RTOL; the
+    field along one seeded direction); the adjoint's transposed operator
+    through bell_spmv (held against its plain version), no matvec through a
+    plain version."""
+    import dataclasses
+
+    from shakti_tpu_torch.ops import spmv_cuda
+    from shakti_tpu_torch.physics import residual
+    from shakti_tpu_torch.setups import setup_bench
+    from shakti_tpu_torch.solve import krylov
+    from shakti_tpu_torch.solve import timestep as ts
+    t_phase = time.perf_counter()
+    if md is None:
+        md = setup_bench.initialize(days=1)
+        md.device, md.dtype = dev, torch.float64
+        # the bench model has no meltwater input, so neither loss would
+        # depend on it: a uniform distributed recharge of 1e-8 m/s
+        md.inputs = np.full(md.x.size, 1e-8)
+    md.solver = dataclasses.replace(md.solver, **ADJOINT_SOLVER)
+    mesh, static, state, cfg = md.freeze()
+    dts = ts.timestep_sizes(md.timesteps, md.dtype, dev)[1:steps + 1]
+    fwd = {}
+    for diff in (False, True):
+        step = ts.make_step_fn(mesh, static, md.params,
+                               dataclasses.replace(cfg, differentiable=diff))
+        out, d = ts.run_window(step, state, dts)
+        if not d["converged"].all():
+            raise RuntimeError(f"adjoint phase forward (differentiable="
+                               f"{diff}) did not converge: {d}")
+        fwd[diff] = (out, d)
+    same = {k: bitwise_equal(getattr(fwd[False][0], k),
+                             getattr(fwd[True][0], k))
+            for k in ("N", "b", "q", "melt")}
+    log(f"  forward with differentiable=True bitwise equal to False: {same};"
+        f" newton {fwd[True][1]['newton_iters'].tolist()}, cg "
+        f"{fwd[True][1]['cg_iters'].tolist()}")
+    if not all(same.values()):
+        raise RuntimeError(f"differentiable=True changed the forward: {same}")
+    step = ts.make_step_fn(mesh, static, md.params, cfg)
+
+    def loss_scale(s):
+        out, _ = ts.run_window(step, state, {"dt": dts,
+                                             "inputs_scale": s.expand(steps)})
+        return out.N.mean()
+
+    # the backward's matvecs and adjoint solves, observed on their way
+    seen, cg = [], []
+    real_op, real_cg = residual.operator_from_values, krylov.SOLVERS["cg"]
+
+    def op_spy(vals, mesh_, dirichlet, extra=None):
+        seen.append((vals, dirichlet, extra))
+        return real_op(vals, mesh_, dirichlet, extra)
+
+    def cg_spy(*a, **k):
+        x, info = real_cg(*a, **k)
+        cg.append(info["iters"])
+        return x, info
+
+    res = {"forward_equal": same, "newton": fwd[True][1]["newton_iters"].tolist(),
+           "cg": fwd[True][1]["cg_iters"].tolist()}
+    s = torch.tensor(1.0, dtype=md.dtype, device=dev, requires_grad=True)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    L = loss_scale(s)
+    t_fwd = sync_s(dev, t0)
+    spmv_cuda.reset_launches()
+    residual.operator_from_values, krylov.SOLVERS["cg"] = op_spy, cg_spy
+    try:
+        with counted_plain() as plain:
+            t0 = time.perf_counter()
+            L.backward()
+            t_bwd = sync_s(dev, t0)
+    finally:
+        residual.operator_from_values, krylov.SOLVERS["cg"] = real_op, real_cg
+    launches = dict(spmv_cuda.launches)
+    g = s.grad.item()
+    with torch.no_grad():
+        h = 1e-5
+        fd = (loss_scale(s.detach() + h) - loss_scale(s.detach() - h)).item() / (2 * h)
+    if fd == 0.0:
+        raise RuntimeError("mean(N) does not move with inputs_scale")
+    res["scale"] = dict(grad=g, fd=fd, rel=abs(g - fd) / abs(fd))
+    res.update(launches_backward=launches, plain_calls_backward=plain,
+               adjoint_cg=list(cg), forward_ms_per_step=1e3 * t_fwd / steps,
+               backward_ms_per_step=1e3 * t_bwd / steps,
+               peak_gb=(torch.cuda.max_memory_allocated(dev) / 1e9
+                        if dev.type == "cuda" else None))
+    log("  d mean(N)/d inputs_scale: " + json.dumps(res["scale"])
+        + f"; adjoint CG per step {cg}; forward "
+        f"{res['forward_ms_per_step']:.1f} ms/step, backward "
+        f"{res['backward_ms_per_step']:.1f} ms/step; backward launches "
+        f"{launches}, plain calls {plain}; peak {res['peak_gb']} GB")
+    kernel = "bell_spmv" if mesh.bell_nbr is not None else "ell_spmv"
+    if (res["scale"]["rel"] > FD_RTOL or len(seen) != steps
+            or launches[kernel] <= 0 or any(plain.values())):
+        raise RuntimeError(f"adjoint (inputs_scale): {res}")
+
+    # the adjoint's transposed operator against its plain version
+    if dev.type == "cuda" and kernel == "bell_spmv":
+        vals, dirichlet, extra = seen[-1]
+        x = torch.as_tensor(np.random.default_rng(4).standard_normal(
+            mesh.n_nodes), dtype=md.dtype, device=dev)
+        rtol, atol_rel = next((r, a) for t, r, a in TOLS if t == md.dtype)
+        res["operator_max_abs_err"] = check_operator(
+            "adjoint A^T (last step)", vals, mesh, x, dirichlet, extra, rtol,
+            atol_rel)
+
+    # the (n,) inputs field through make_runner, along a seeded direction
+    runner = ts.make_runner(md.params, cfg)
+    base = static.inputs
+    v = torch.as_tensor(np.random.default_rng(7).normal(size=mesh.n_nodes),
+                        dtype=md.dtype, device=dev)
+    v = v / torch.linalg.vector_norm(v)
+
+    def loss_inputs(inputs):
+        out, _ = runner(mesh, dataclasses.replace(static, inputs=inputs),
+                        state, dts)
+        return out.N.mean() / 1e5
+
+    x = base.clone().requires_grad_(True)
+    spmv_cuda.reset_launches()
+    t0 = time.perf_counter()
+    loss_inputs(x).backward()
+    t_field = sync_s(dev, t0)
+    gdir = float(torch.dot(x.grad, v))
+    with torch.no_grad():
+        h = 1e-6 * float(torch.linalg.vector_norm(base))
+        fd = (loss_inputs(base + h * v) - loss_inputs(base - h * v)).item() / (2 * h)
+    if fd == 0.0:
+        raise RuntimeError("mean(N) does not move with the inputs field")
+    res["inputs"] = dict(grad_dir=gdir, fd=fd, rel=abs(gdir - fd) / abs(fd),
+                         launches=dict(spmv_cuda.launches),
+                         s=t_field)
+    log("  d mean(N)/d inputs (make_runner) along a seeded direction: "
+        + json.dumps(res["inputs"]))
+    if res["inputs"]["rel"] > FD_RTOL:
+        raise RuntimeError(f"adjoint (inputs field): {res['inputs']}")
+    res["wall_s"] = time.perf_counter() - t_phase
+    log(f"  phase 16: {res['wall_s']:.1f} s")
+    return res
+
+
+def bell_batched_bound(mesh, dtype, M):
+    """(ms, 'bytes' or 'operations') of one member-batched launch: M times
+    each member's values, x, y and extra, plus the view's positions, the
+    row lengths and the mask once; M times the flops."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    n = mesh.n_nodes
+    nnz = int((mesh.bell_nz_pos >= 0).sum())
+    nbytes = M * (nnz * es + 3 * n * es) + nnz * 4 + 4 * n + n
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = M * (2 * nnz + 3 * n) / FLOPS[dtype]
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def block_diag_csr(vals, mesh):
+    """The M operators as one block-diagonal torch sparse CSR matrix (the
+    library yardstick of the batched launch; never used by the port)."""
+    from shakti_tpu_torch.ops.spmv_cuda import view_columns
+    n = mesh.n_nodes
+    col = view_columns(mesh.bell_nz_pos, mesh.bell_nbr, mesh.bell_B)
+    parts = [csr_of(vals[m], mesh.bell_nz_pos, col, n)
+             for m in range(vals.shape[0])]
+    nnz = parts[0].values().numel()
+    crow = torch.cat([parts[0].crow_indices()] + [
+        p.crow_indices()[1:] + m * nnz for m, p in enumerate(parts) if m])
+    cols = torch.cat([p.col_indices() + m * n for m, p in enumerate(parts)])
+    return torch.sparse_csr_tensor(crow, cols,
+                                   torch.cat([p.values() for p in parts]),
+                                   (len(parts) * n,) * 2)
+
+
+def check_batched(tag, vals, mesh, x, dirichlet, extra, rtol, atol_rel):
+    """The batched launch: each member bitwise equal to a single launch on
+    its slice, all within tolerance of the plain version (per member), and
+    bitwise repeatable; returns the error against the plain version."""
+    from shakti_tpu_torch.ops import spmv_cuda as sp
+    op = sp.bell_operator_batched_fn(vals, mesh, dirichlet, extra)
+    y = op(x)
+    singles = torch.stack([sp.bell_operator_fn(
+        vals[m], mesh, dirichlet, None if extra is None else extra[m])(x[m])
+        for m in range(vals.shape[0])])
+    plain = sp.bell_operator_batched_plain(vals, mesh, x, dirichlet, extra)
+    torch.cuda.synchronize()
+    if not bitwise_equal(y, singles):
+        raise RuntimeError(f"batched bell_spmv {tag}: differs from M single "
+                           f"launches in {int((y != singles).sum())} entries")
+    err = check_close(f"{tag} batched vs plain", y, plain, rtol, atol_rel)
+    if not bitwise_equal(op(x), y):
+        raise RuntimeError(f"batched bell_spmv {tag}: two launches differ")
+    return err
+
+
+def batched_kernel(dev, mesh, dirichlet, M_by_dtype):
+    """The batched launch at the bench shape: checks (f32 at M = 8, f64 at M
+    = 3) and, in f32, its times beside 8 single launches, the plain version
+    and a block-diagonal CSR mv, and its bytes bound."""
+    from shakti_tpu_torch.fem.bell import bell_from_elements
+    from shakti_tpu_torch.ops import spmv_cuda as sp
+    out = {}
+    for dtype, rtol, atol_rel in TOLS:
+        M = M_by_dtype[dtype]
+        tag = f"M={M} {str(dtype).removeprefix('torch.')}"
+        rng = np.random.default_rng(11)
+        vals = torch.stack([bell_from_elements(torch.as_tensor(
+            rng.standard_normal((mesh.n_cells, 3, 3)), dtype=dtype,
+            device=dev), mesh) for _ in range(M)])
+        x = torch.as_tensor(rng.standard_normal((M, mesh.n_nodes)),
+                            dtype=dtype, device=dev)
+        extra = torch.as_tensor(rng.random((M, mesh.n_nodes))
+                                * ~dirichlet.cpu().numpy(), dtype=dtype,
+                                device=dev)
+        r = {"M": M}
+        r["max_abs_err_product"] = check_batched(f"{tag} product", vals, mesh,
+                                                 x, None, None, rtol, atol_rel)
+        r["max_abs_err"] = check_batched(f"{tag} epilogue", vals, mesh, x,
+                                         dirichlet, extra, rtol, atol_rel)
+        if dtype == torch.float32:
+            op = sp.bell_operator_batched_fn(vals, mesh, dirichlet, extra)
+            singles = [sp.bell_operator_fn(vals[m], mesh, dirichlet, extra[m])
+                       for m in range(M)]
+            xs = list(x)
+
+            def eight():
+                for m in range(M):
+                    singles[m](xs[m])
+            r["device_ms"] = device_ms(lambda: op(x), "bell_spmv")
+            r["singles_device_ms"] = device_ms(eight)
+            r["ms"] = median_ms(lambda: op(x))
+            r["singles_ms"] = median_ms(eight)
+            r["plain_device_ms"] = device_ms(
+                lambda: sp.bell_operator_batched_plain(vals, mesh, x,
+                                                       dirichlet, extra))
+            r["plain_ms"] = median_ms(
+                lambda: sp.bell_operator_batched_plain(vals, mesh, x,
+                                                       dirichlet, extra))
+            prod = sp.bell_operator_batched_fn(vals, mesh)
+            try:
+                A = block_diag_csr(vals, mesh)
+                xf = x.reshape(-1)
+                check_close(f"{tag} library block-diagonal CSR vs kernel",
+                            torch.mv(A, xf), prod(x).reshape(-1), 1e-5,
+                            atol_rel)
+                r["library_device_ms"] = device_ms(lambda: torch.mv(A, xf))
+                r["library_ms"] = median_ms(lambda: torch.mv(A, xf))
+                del A
+            except RuntimeError as e:
+                log(f"  library block-diagonal CSR mv refused: {e}")
+                r["library_device_ms"] = r["library_ms"] = None
+            r["bound_ms"], r["bound_by"] = bell_batched_bound(mesh, dtype, M)
+            log(f"  batched launch {tag}: device {r['device_ms']:.5f} ms "
+                f"(8 single launches {r['singles_device_ms']:.5f} ms device),"
+                f" {r['ms']:.5f} ms/call between CUDA events (8 singles "
+                f"{r['singles_ms']:.5f}); plain {r['plain_device_ms']:.5f} ms "
+                f"device ({r['plain_ms']:.5f} events); library block-diagonal "
+                f"CSR mv {r['library_device_ms']} ms device "
+                f"({r['library_ms']} events); bound {r['bound_ms']:.5f} ms by "
+                f"{r['bound_by']}")
+        out[str(dtype).removeprefix("torch.")] = r
+        del vals, x, extra
+    return out
+
+
+# members 0 and 7 alone against their slots of the f32 ensemble: roundoff
+# in the batched dots, norms and coarse products (another reduction order
+# on the card) moves N by at most a few Newton tolerances (rtol 2e-5)
+ENSEMBLE_F32_RTOL = 1e-4
+
+
+def phase_ensemble(dev, md32=None, md64=None, steps=24, steps64=4, M=8,
+                   M64=3):
+    """Phase 17: the batched ensemble at full width.  The bench model in
+    float32, M = 8 members of perturbed_ensemble(b_scale 5e-4, seed 0),
+    ``steps`` hourly steps through make_ensemble_runner: converged, finite,
+    the batched bell_spmv launched and no matvec through a plain version;
+    members 0 and 7 alone with equal Newton counts and N within
+    ENSEMBLE_F32_RTOL of scale; then float64 with M = 3 over ``steps64``
+    steps equal to the member runs within 1e-10; the batched launch checked
+    and timed at the bench shape."""
+    import dataclasses
+
+    from shakti_tpu_torch.ops import spmv_cuda
+    from shakti_tpu_torch.parallel import ensemble as ens_mod
+    from shakti_tpu_torch.setups import setup_bench
+    from shakti_tpu_torch.solve import timestep as ts
+    t_phase = time.perf_counter()
+    res = {}
+    if md32 is None:
+        md32 = setup_bench.initialize(days=2)
+        md32.device = dev
+    mesh, static, state, cfg = md32.freeze()
+    forcing = {k: v[:steps] for k, v in ts.make_forcing(
+        md32.timesteps, dtype=md32.dtype, device=dev).items()}
+    ens = ens_mod.perturbed_ensemble(state, M, b_scale=5e-4, seed=0)
+    runner = ens_mod.make_ensemble_runner(mesh, static, md32.params, cfg)
+    spmv_cuda.reset_launches()
+    with counted_plain() as plain:
+        t0 = time.perf_counter()
+        out, d = runner(ens, forcing)
+        wall = sync_s(dev, t0)
+    launches = dict(spmv_cuda.launches)
+    finite = all(bool(torch.isfinite(getattr(out, k)).all())
+                 for k in ("N", "b", "q", "melt"))
+    res.update(M=M, steps=steps, launches=launches, plain_calls=plain,
+               ms_per_step=1e3 * wall / steps,
+               ms_per_member_step=1e3 * wall / steps / M,
+               newton_mean=float(d["newton_iters"].mean()),
+               cg_mean=float(d["cg_iters"].mean()))
+    log(f"  ensemble M={M} f32 {steps} steps: " + json.dumps(res))
+    batched_name = ("bell_spmv_batched" if mesh.bell_nbr is not None
+                    else "ell_spmv")
+    if not (d["converged"].all() and finite and launches[batched_name] > 0
+            and not any(plain.values())):
+        raise RuntimeError(f"ensemble run: converged {d['converged']}, "
+                           f"finite {finite}, {res}")
+    step = ts.make_step_fn(mesh, static, md32.params,
+                           dataclasses.replace(cfg, lag_operator=False))
+    members = {}
+    for m in (0, M - 1):
+        t0 = time.perf_counter()
+        s, dm = ts.run_window(step, ens_mod.member(ens, m), forcing)
+        w = sync_s(dev, t0)
+        scale = float(s.N.abs().max())
+        members[m] = dict(
+            ms_per_step=1e3 * w / steps,
+            newton_equal=bool(np.array_equal(dm["newton_iters"],
+                                             d["newton_iters"][:, m])),
+            cg_alone=int(dm["cg_iters"].sum()),
+            cg_in_ensemble=int(d["cg_iters"][:, m].sum()),
+            err_N=float((s.N - out.N[m]).abs().max()) / scale)
+    res["members"] = members
+    log("  members alone (f32): " + json.dumps(members))
+    if not all(r["newton_equal"] and r["err_N"] <= ENSEMBLE_F32_RTOL
+               for r in members.values()):
+        raise RuntimeError(f"ensemble members differ from their runs: "
+                           f"{members}")
+    del out, ens
+
+    # float64, M64 members: equal to the member runs to 1e-10
+    if md64 is None:
+        md64 = setup_bench.initialize(days=2)
+        md64.device, md64.dtype = dev, torch.float64
+    mesh64, static64, state64, cfg64 = md64.freeze()
+    dts = ts.timestep_sizes(md64.timesteps, md64.dtype, dev)[:steps64]
+    ens = ens_mod.perturbed_ensemble(state64, M64, b_scale=5e-4, seed=0)
+    out, d = ens_mod.make_ensemble_runner(mesh64, static64, md64.params,
+                                          cfg64)(ens, dts)
+    step = ts.make_step_fn(mesh64, static64, md64.params,
+                           dataclasses.replace(cfg64, lag_operator=False))
+    f64 = {}
+    for m in range(M64):
+        s, dm = ts.run_window(step, ens_mod.member(ens, m), dts)
+        f64[m] = dict(newton_equal=bool(np.array_equal(
+            dm["newton_iters"], d["newton_iters"][:, m])),
+            err_N=float((s.N - out.N[m]).abs().max() / s.N.abs().max()),
+            err_b=float((s.b - out.b[m]).abs().max() / s.b.abs().max()))
+    res["f64"] = f64
+    log(f"  f64 M={M64} {steps64} steps against member runs: "
+        + json.dumps(f64))
+    if not (d["converged"].all() and all(
+            r["newton_equal"] and max(r["err_N"], r["err_b"]) <= 1e-10
+            for r in f64.values())):
+        raise RuntimeError(f"f64 ensemble differs from member runs: {f64}")
+    if dev.type == "cuda" and mesh.bell_nbr is not None:
+        res["kernel"] = batched_kernel(dev, mesh, static.dirichlet,
+                                       {torch.float32: M,
+                                        torch.float64: M64})
+    res["wall_s"] = time.perf_counter() - t_phase
+    log(f"  phase 17: {res['wall_s']:.1f} s")
+    return res
+
+
 # the kernels line: "ms", "plain_ms" and "library_ms" are times per call
 # between CUDA events (host work included), as "ms" has been since the first
 # kernel; the *_device_ms are torch.profiler's device times
@@ -1476,10 +1914,14 @@ LINE_KEYS = ("max_abs_err", "ms", "device_ms", "plain_ms", "plain_device_ms",
              "library_ms", "library_device_ms", "bound_ms", "host_us",
              "host_us_composed")
 ELL_LINE_KEYS = tuple(k for k in LINE_KEYS if k != "host_us_composed")
+BATCHED_LINE_KEYS = ("M", "max_abs_err", "ms", "device_ms", "singles_ms",
+                     "singles_device_ms", "plain_ms", "plain_device_ms",
+                     "library_ms", "library_device_ms", "bound_ms")
 
 
 PHASES = ("kernel", "goldens", "main", "ell", "scale", "formats", "resume",
-          "bootstrap", "bicgstab", "mg", "steady", "polish")
+          "bootstrap", "bicgstab", "mg", "steady", "polish", "adjoint",
+          "ensemble")
 
 
 def main(argv=None):
@@ -1523,6 +1965,7 @@ def main(argv=None):
         log(f"[{name}] (t = {time.perf_counter() - t_start:.1f} s)")
 
     kres = mres = sres = eres = gres = stres = pres = slab = None
+    ares = enres = None
     # ---- 3. bell_spmv vs plain at the bench shapes ----
     from shakti_tpu_torch.setups import setup_bench
     if "kernel" in phases:
@@ -1630,12 +2073,21 @@ def main(argv=None):
         if "polish" in phases:
             stamp("polish: slab polish; SHMIP A1 60 x 12 steady with polish")
             pres = phase_polish(dev, tmp, slab)
+
+    # ---- 16. the differentiable transient; 17. the batched ensemble ----
+    if "adjoint" in phases:
+        stamp("adjoint: bench model, float64, 6 steps, gradients vs FD")
+        ares = phase_adjoint(dev)
+    if "ensemble" in phases:
+        stamp("ensemble: bench model, float32, M = 8, 24 steps")
+        enres = phase_ensemble(dev)
     stamp("done")
 
     if phases != list(PHASES):
         log("partial run: no result lines")
         return 0
     f32 = kres["float32"]
+    bat = enres["kernel"]["float32"]
     large = next(v for k, v in eres.items() if k.startswith("large"))
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"kernels": [{
@@ -1646,9 +2098,18 @@ def main(argv=None):
         "launches_mg_bench": gres["bench"]["bell"]["launches"]["bell_spmv"],
         "launches_steady": stres["launches"]["bell_spmv"],
         "launches_shmip_a1": pres["a1"]["launches"]["bell_spmv"],
+        "launches_adjoint_backward": ares["launches_backward"]["bell_spmv"],
         "W": kres["W"],
         **{k: f32[k] for k in LINE_KEYS}, "bound_by": f32["bound_by"],
         "float64": {k: kres["float64"][k] for k in LINE_KEYS}}, {
+        "name": "bell_spmv_batched", "route": "cuda",
+        "source": "shakti_tpu_torch/csrc/bell_spmv.cu",
+        "replaces": "shakti_tpu/ops/spmv_pallas.py:46 (under jax.vmap: "
+                    "shakti_tpu/parallel/ensemble.py:57)",
+        "launches": enres["launches"]["bell_spmv_batched"],
+        **{k: bat[k] for k in BATCHED_LINE_KEYS}, "bound_by": bat["bound_by"],
+        "float64": {k: enres["kernel"]["float64"][k]
+                    for k in ("M", "max_abs_err", "max_abs_err_product")}}, {
         "name": "ell_spmv", "route": "cuda",
         "source": "shakti_tpu_torch/csrc/ell_spmv.cu",
         "replaces": "none (not a TPU kernel): shakti_tpu/fem/bcsr.py:84 "

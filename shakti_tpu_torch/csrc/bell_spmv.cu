@@ -51,6 +51,14 @@
 //
 // Assumes vals is zero outside nz_pos: fem/bell.py:plan_sum writes only the
 // fold's slots into a zeroed array, and the lag carry starts at zeros.
+//
+// The member-batched launch (an ensemble's M operators on one mesh: vals
+// (M, NB, KB, B, B), x, extra and y (M, n)) runs the same rows for every
+// member along the grid's second axis, sharing the view, nbr and the mask.
+// One launch replaces M: at the bench shape a single launch is bound by
+// load latency, not bytes, so M members in one grid fill the SMs that one
+// member leaves idle (192 CTAs on 132 SMs).  Its bytes bound is M times the
+// values, x, y and extra, plus the view, the lengths and the mask once.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -66,13 +74,12 @@ __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, 
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-bell_spmv_kernel(const T* __restrict__ vals,
-                 const int32_t* __restrict__ nz_pos,
-                 const int64_t* __restrict__ nbr, int KB, int log2B, int W,
-                 int n, const T* __restrict__ x,
-                 const uint8_t* __restrict__ mask,
-                 const T* __restrict__ extra, T* __restrict__ y) {
+__device__ __forceinline__ void
+bell_spmv_rows(const T* __restrict__ vals, const int32_t* __restrict__ nz_pos,
+               const int64_t* __restrict__ nbr, int KB, int log2B, int W,
+               int n, const T* __restrict__ x,
+               const uint8_t* __restrict__ mask, const T* __restrict__ extra,
+               T* __restrict__ y) {
   extern __shared__ int32_t nbr_s[];  // nbr rows r0 .. r1 of this CTA
   const int i0 = blockIdx.x * kThreads;
   const int i = i0 + threadIdx.x;
@@ -118,14 +125,45 @@ bell_spmv_kernel(const T* __restrict__ vals,
 }
 
 template <typename T>
-int launch(const T* vals, const int32_t* nz_pos, const int64_t* nbr, int KB,
-           int B, int W, int n, const T* x, const uint8_t* mask,
-           const T* extra, T* y, int device, cudaStream_t stream) {
+__global__ void __launch_bounds__(kThreads)
+bell_spmv_kernel(const T* __restrict__ vals,
+                 const int32_t* __restrict__ nz_pos,
+                 const int64_t* __restrict__ nbr, int KB, int log2B, int W,
+                 int n, const T* __restrict__ x,
+                 const uint8_t* __restrict__ mask,
+                 const T* __restrict__ extra, T* __restrict__ y) {
+  bell_spmv_rows<T>(vals, nz_pos, nbr, KB, log2B, W, n, x, mask, extra, y);
+}
+
+// The member-batched launch: member m = blockIdx.y reads its own values at
+// vals + m * stride and its own x, extra and y rows (m * n); the structure
+// (nz_pos, nbr) and the mask are shared.  Each member does the single
+// launch's operations in its order, so it is bitwise equal to a single
+// launch on its slice.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+bell_spmv_batched_kernel(const T* __restrict__ vals, int64_t stride,
+                         const int32_t* __restrict__ nz_pos,
+                         const int64_t* __restrict__ nbr, int KB, int log2B,
+                         int W, int n, const T* __restrict__ x,
+                         const uint8_t* __restrict__ mask,
+                         const T* __restrict__ extra, T* __restrict__ y) {
+  const int64_t m = blockIdx.y;
+  bell_spmv_rows<T>(vals + m * stride, nz_pos, nbr, KB, log2B, W, n,
+                    x + m * n, mask, extra == nullptr ? nullptr : extra + m * n,
+                    y + m * n);
+}
+
+template <typename T>
+int launch(const T* vals, int64_t stride, int members, const int32_t* nz_pos,
+           const int64_t* nbr, int KB, int B, int W, int n, const T* x,
+           const uint8_t* mask, const T* extra, T* y, int device,
+           cudaStream_t stream) {
   if (n <= 0) return 0;
   // the nbr rows one CTA of kThreads rows can touch
   const size_t smem = sizeof(int32_t) * KB * ((kThreads - 1) / B + 2);
   if (W < 1 || W > kWMax || KB < 1 || B < 1 || (B & (B - 1)) != 0
-      || smem > 48 * 1024)
+      || smem > 48 * 1024 || members < 1 || members > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const int log2B = __builtin_ctz(static_cast<unsigned>(B));
   int prev = -1;
@@ -134,8 +172,13 @@ int launch(const T* vals, const int32_t* nz_pos, const int64_t* nbr, int KB,
   if (prev != device && (err = cudaSetDevice(device)) != cudaSuccess)
     return static_cast<int>(err);
   const int blocks = (n + kThreads - 1) / kThreads;
-  bell_spmv_kernel<T><<<blocks, kThreads, smem, stream>>>(
-      vals, nz_pos, nbr, KB, log2B, W, n, x, mask, extra, y);
+  if (stride == 0)  // the single launch
+    bell_spmv_kernel<T><<<blocks, kThreads, smem, stream>>>(
+        vals, nz_pos, nbr, KB, log2B, W, n, x, mask, extra, y);
+  else
+    bell_spmv_batched_kernel<T><<<dim3(blocks, members), kThreads, smem,
+                                  stream>>>(
+        vals, stride, nz_pos, nbr, KB, log2B, W, n, x, mask, extra, y);
   err = cudaGetLastError();
   if (prev != device) cudaSetDevice(prev);
   return static_cast<int>(err);
@@ -155,8 +198,8 @@ extern "C" int bell_spmv_f32(const float* vals, const int32_t* nz_pos,
                              int n, const float* x, const uint8_t* mask,
                              const float* extra, float* y, int device,
                              void* stream) {
-  return launch<float>(vals, nz_pos, nbr, KB, B, W, n, x, mask, extra, y,
-                       device, static_cast<cudaStream_t>(stream));
+  return launch<float>(vals, 0, 1, nz_pos, nbr, KB, B, W, n, x, mask, extra,
+                       y, device, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int bell_spmv_f64(const double* vals, const int32_t* nz_pos,
@@ -164,6 +207,31 @@ extern "C" int bell_spmv_f64(const double* vals, const int32_t* nz_pos,
                              int n, const double* x, const uint8_t* mask,
                              const double* extra, double* y, int device,
                              void* stream) {
-  return launch<double>(vals, nz_pos, nbr, KB, B, W, n, x, mask, extra, y,
-                        device, static_cast<cudaStream_t>(stream));
+  return launch<double>(vals, 0, 1, nz_pos, nbr, KB, B, W, n, x, mask, extra,
+                        y, device, static_cast<cudaStream_t>(stream));
+}
+
+// The member-batched launch: vals (M, NB, KB, B, B) with `stride` = NB KB B B
+// elements between members, x, extra and y (M, n); one launch for all M
+// members (1 <= M <= 65535, the grid's second axis).
+extern "C" int bell_spmv_batched_f32(const float* vals, int64_t stride, int M,
+                                     const int32_t* nz_pos,
+                                     const int64_t* nbr, int KB, int B, int W,
+                                     int n, const float* x,
+                                     const uint8_t* mask, const float* extra,
+                                     float* y, int device, void* stream) {
+  if (stride < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<float>(vals, stride, M, nz_pos, nbr, KB, B, W, n, x, mask,
+                       extra, y, device, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int bell_spmv_batched_f64(const double* vals, int64_t stride, int M,
+                                     const int32_t* nz_pos,
+                                     const int64_t* nbr, int KB, int B, int W,
+                                     int n, const double* x,
+                                     const uint8_t* mask, const double* extra,
+                                     double* y, int device, void* stream) {
+  if (stride < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<double>(vals, stride, M, nz_pos, nbr, KB, B, W, n, x, mask,
+                        extra, y, device, static_cast<cudaStream_t>(stream));
 }

@@ -17,6 +17,9 @@ floor ``matvec0(x) + extra * x`` of shakti_tpu/solve/newton.py):
   :func:`bell_operator_plain`, the dense block-ELL product of
   shakti_tpu/fem/bell.py:bell_matvec with the epilogue composed in PyTorch.
   :func:`bell_operator_structural` is the kernel's mirror over the view.
+  :func:`bell_operator_batched_fn` is the member-batched launch for an
+  ensemble's M operators on one mesh: one launch for all members on CUDA,
+  :func:`bell_operator_batched_plain` (the plain version per member) on CPU.
 - **ell_spmv** serves the scalar-ELL and the block-CSR operator, which the
   JAX package computes in XLA (no TPU kernel).  Both store their structural
   values alone, ``svals`` (W, n) with columns ``mesh.nz_col`` (fem/ell.py).
@@ -68,6 +71,10 @@ KERNELS = {
     "bell_spmv": [_p, _p, _p, _i, _i, _i, _i, _p, _p, _p, _p, _i, _p],
     "ell_spmv": [_p, _p, _i, _i, _p, _p, _p, _p, _i, _p],
 }
+# further entry points of a library: name -> C signature
+BATCHED = {"bell_spmv_batched": ("bell_spmv", [_p, ctypes.c_int64, _i, _p, _p,
+                                               _i, _i, _i, _i, _p, _p, _p, _p,
+                                               _i, _p])}
 
 
 def _build_dir() -> Path:
@@ -126,16 +133,20 @@ def build(name: str = "bell_spmv") -> dict:
         log_path.write_text(log)
         os.replace(tmp, path)
     lib = ctypes.CDLL(str(path))
-    for fn in (getattr(lib, f"{name}_f32"), getattr(lib, f"{name}_f64")):
-        fn.argtypes = KERNELS[name]
-        fn.restype = _i
+    entries = {name: KERNELS[name]}
+    entries.update({e: sig for e, (src, sig) in BATCHED.items() if src == name})
+    for entry, sig in entries.items():
+        for fn in (getattr(lib, f"{entry}_f32"), getattr(lib, f"{entry}_f64")):
+            fn.argtypes = sig
+            fn.restype = _i
     log = log_path.read_text() if log_path.exists() else ""
     return {"lib": lib, "path": str(path), "seconds": seconds, "log": log}
 
 
-# kernel launches since the last reset, per kernel: each launcher adds one
-# per launch (chip_smoke.py reads them to show a path went through a kernel)
-launches = dict.fromkeys(KERNELS, 0)
+# kernel launches since the last reset, per kernel and entry point: each
+# launcher adds one per launch (chip_smoke.py reads them to show a path went
+# through a kernel)
+launches = dict.fromkeys((*KERNELS, *BATCHED), 0)
 
 
 def reset_launches():
@@ -280,18 +291,20 @@ def ell_operator_dense(svals, mesh, x, dirichlet=None, extra=None):
 
 class _Launcher:
     """One checked operator on the card: each call is a ``torch.empty`` and
-    one launch of kernel ``name``, whose arguments before x are ``args``.
-    Holds the tensors whose pointers it passes (``keep``)."""
+    one launch of entry point ``name`` (a kernel of :data:`KERNELS` or an
+    entry of :data:`BATCHED`), whose arguments before x are ``args``; x and
+    y have ``shape``.  Holds the tensors whose pointers it passes
+    (``keep``)."""
 
-    def __init__(self, name, vals, n, args, keep, dirichlet, extra):
+    def __init__(self, name, vals, shape, args, keep, dirichlet, extra):
         if vals.device.type != "cuda":
             raise ValueError(f"{name}: unsupported device {vals.device}")
-        lib = build(name)["lib"]
+        lib = build(BATCHED[name][0] if name in BATCHED else name)["lib"]
         self.name = name
         self.fn = getattr(lib, f"{name}_f32" if vals.dtype == torch.float32
                           else f"{name}_f64")
         self.keep = (vals, *keep, dirichlet, extra)
-        self.n = n
+        self.shape = tuple(shape)
         self.dtype, self.device = vals.dtype, vals.device
         self.index = vals.device.index
         self.args = args
@@ -299,7 +312,7 @@ class _Launcher:
                          None if extra is None else extra.data_ptr())
 
     def __call__(self, x):
-        _check_x(x, self.n, self.dtype, self.device)
+        _check_x(x, self.shape, self.dtype, self.device)
         y = torch.empty_like(x)
         # the current stream's handle, without building a torch.cuda.Stream
         stream = torch._C._cuda_getCurrentRawStream(self.index)
@@ -311,15 +324,16 @@ class _Launcher:
         return y
 
 
-def _check_x(x, n, dtype, device):
-    if (x.shape != (n,) or x.dtype != dtype or x.device != device
-            or not x.is_contiguous()):
-        raise ValueError(f"x must be a contiguous {dtype} ({n},) on {device}, "
-                         f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+def _check_x(x, shape, dtype, device):
+    if (tuple(x.shape) != tuple(shape) or x.dtype != dtype
+            or x.device != device or not x.is_contiguous()):
+        raise ValueError(f"x must be a contiguous {dtype} {tuple(shape)} on "
+                         f"{device}, got {x.dtype} {tuple(x.shape)} on "
+                         f"{x.device}")
 
 
 def _cpu_operator(plain, vals, mesh, x, dirichlet, extra):
-    _check_x(x, mesh.n_nodes, vals.dtype, vals.device)
+    _check_x(x, (mesh.n_nodes,), vals.dtype, vals.device)
     return plain(vals, mesh, x, dirichlet, extra)
 
 
@@ -338,10 +352,57 @@ def bell_operator_fn(vals, mesh, dirichlet=None, extra=None):
         raise ValueError(f"the kernel takes a block edge B that is a power "
                          f"of two, got {mesh.bell_B}")
     pos, nbr = mesh.bell_nz_pos, mesh.bell_nbr
-    return _Launcher("bell_spmv", vals, mesh.n_nodes,
+    return _Launcher("bell_spmv", vals, (mesh.n_nodes,),
                      (vals.data_ptr(), pos.data_ptr(), nbr.data_ptr(),
                       nbr.shape[1], mesh.bell_B, pos.shape[0], mesh.n_nodes),
                      (pos, nbr), dirichlet, extra)
+
+
+def bell_operator_batched_plain(vals, mesh, x, dirichlet=None, extra=None):
+    """The member-batched operator in plain PyTorch: :func:`bell_operator_plain`
+    for each member (vals (M, NB, KB, B, B), x and extra (M, n)), stacked."""
+    return torch.stack([
+        bell_operator_plain(vals[m], mesh, x[m], dirichlet,
+                            None if extra is None else extra[m])
+        for m in range(vals.shape[0])])
+
+
+def _cpu_batched(vals, mesh, x, dirichlet, extra):
+    _check_x(x, (vals.shape[0], mesh.n_nodes), vals.dtype, vals.device)
+    return bell_operator_batched_plain(vals, mesh, x, dirichlet, extra)
+
+
+def bell_operator_batched_fn(vals, mesh, dirichlet=None, extra=None):
+    """The matvecs ``x -> y`` of M block-ELL operators on one mesh at once:
+    vals (M, NB, KB, B, B), extra (M, n) or None, x and y (M, n); the
+    Dirichlet mask is shared.  CUDA tensors: one launch of the
+    csrc/bell_spmv.cu kernel for all members (entry ``bell_spmv_batched``),
+    each member bitwise equal to a :func:`bell_operator_fn` launch on its
+    slice (or an error); CPU tensors: :func:`bell_operator_batched_plain`."""
+    if vals.dim() != 5:
+        raise ValueError(f"vals must be (M, NB, KB, B, B), got "
+                         f"{tuple(vals.shape)}")
+    M, n = vals.shape[0], mesh.n_nodes
+    if not 1 <= M <= 65535:
+        raise ValueError(f"the batched launch takes 1 to 65535 members, got {M}")
+    if extra is not None and tuple(extra.shape) != (M, n):
+        raise ValueError(f"extra must be (M, n) = {(M, n)}, got "
+                         f"{tuple(extra.shape)}")
+    _check(vals[0], mesh, dirichlet, None if extra is None else extra[0])
+    if vals.device.type == "cpu":
+        return functools.partial(_cpu_batched, vals, mesh,
+                                 dirichlet=dirichlet, extra=extra)
+    if not vals.is_contiguous() or (extra is not None
+                                    and not extra.is_contiguous()):
+        raise ValueError("vals and extra must be contiguous")
+    if mesh.bell_B & (mesh.bell_B - 1):
+        raise ValueError(f"the kernel takes a block edge B that is a power "
+                         f"of two, got {mesh.bell_B}")
+    pos, nbr = mesh.bell_nz_pos, mesh.bell_nbr
+    return _Launcher("bell_spmv_batched", vals, (M, n),
+                     (vals.data_ptr(), vals[0].numel(), M, pos.data_ptr(),
+                      nbr.data_ptr(), nbr.shape[1], mesh.bell_B, pos.shape[0],
+                      n), (pos, nbr), dirichlet, extra)
 
 
 def bell_operator(vals, mesh, x, dirichlet=None, extra=None):
@@ -372,6 +433,6 @@ def ell_operator_fn(svals, mesh, dirichlet=None, extra=None):
     if col.numel() >= 2 ** 31:
         raise ValueError(f"the structural view has {col.numel()} >= 2**31 "
                          "slots: they do not fit the kernel's int32")
-    return _Launcher("ell_spmv", svals, n,
+    return _Launcher("ell_spmv", svals, (n,),
                      (svals.data_ptr(), col.data_ptr(), col.shape[0], n),
                      (col,), dirichlet, extra)

@@ -8,7 +8,9 @@ Port of shakti_tpu/physics/residual.py.  The weak form:
 
 with b, q (hence Re) and the lagged melt frozen at the previous step; the
 frozen data is precomputed once per step into :class:`StepPre`.  Element
-3x3 Jacobian blocks come from forward-mode AD (``torch.autograd.forward_ad``).
+3x3 Jacobian blocks come from forward-mode AD (``torch.func.jvp``).  Every
+function of one member batches over an ensemble's members with
+``torch.func.vmap`` (:data:`PRE_FIELDS` flattens a StepPre for it).
 """
 
 from __future__ import annotations
@@ -17,7 +19,6 @@ import dataclasses
 from typing import Any
 
 import torch
-import torch.autograd.forward_ad as fwAD
 
 from shakti_tpu_torch.fem import bell as bellm
 from shakti_tpu_torch.fem import ell as ellm
@@ -46,6 +47,15 @@ class StepPre:
     storage_q: Any  # (c, nq) lake-storage indicator
     Nn_q: Any       # (c, nq) previous-step N
     dt: Any         # 0-d timestep
+
+
+# StepPre's fields in order: StepPre(*values) rebuilds one
+PRE_FIELDS = tuple(f.name for f in dataclasses.fields(StepPre))
+
+
+def pre_values(pre: StepPre) -> tuple:
+    """The fields of ``pre`` in :data:`PRE_FIELDS` order."""
+    return tuple(getattr(pre, k) for k in PRE_FIELDS)
 
 
 def static_quad_fields(mesh, static, quad_degree: int, dtype):
@@ -141,10 +151,9 @@ def element_jacobian(N, pre: StepPre, mesh, params: PhysicalParams):
     N_ck = N_c[:, :, None].expand(-1, -1, 3).contiguous()
     eye = torch.eye(3, dtype=N.dtype, device=N.device)
     tangent = eye.expand(N_c.shape[0], 3, 3).contiguous()
-    with fwAD.dual_level():
-        F = corner_residual_multi(fwAD.make_dual(N_ck, tangent), pre, mesh,
-                                  params)
-        return fwAD.unpack_dual(F).tangent
+    return torch.func.jvp(
+        lambda x: corner_residual_multi(x, pre, mesh, params), (N_ck,),
+        (tangent,))[1]
 
 
 def jacobian_diag(J_c, mesh):
@@ -222,3 +231,28 @@ def make_operator(J_c, mesh, dirichlet):
         return (operator_from_values(vals, mesh, dirichlet),
                 operator_diag_from_values(vals, mesh))
     return make_matvec(J_c, mesh, dirichlet), -jacobian_diag(J_c, mesh)
+
+
+def member_operators(vals, J_c, mesh, dirichlet, extra):
+    """The operator of each member of a batch (``vals`` (M, ...) in the
+    mesh's format, else the element blocks ``J_c`` (M, c, 3, 3), and
+    ``extra`` (M, n)): a list of M single-member matvecs, each one kernel
+    launch on the card (:func:`operator_from_values`) or the matrix-free
+    product."""
+    if vals is not None:
+        return [operator_from_values(vals[m], mesh, dirichlet, extra[m])
+                for m in range(vals.shape[0])]
+    return [make_matvec(J_c[m], mesh, dirichlet, extra[m])
+            for m in range(J_c.shape[0])]
+
+
+def batched_operator(vals, J_c, mesh, dirichlet, extra):
+    """The matvec (M, n) -> (M, n) of a batch of operators: block-ELL values
+    take one member-batched launch for all members
+    (ops/spmv_cuda.bell_operator_batched_fn); ELL and block-CSR launch
+    ell_spmv once per member, and the matrix-free operator runs per member
+    (:func:`member_operators`)."""
+    if vals is not None and not mesh.structural:
+        return spmv.bell_operator_batched_fn(vals, mesh, dirichlet, extra)
+    ops_ = member_operators(vals, J_c, mesh, dirichlet, extra)
+    return lambda x: torch.stack([op(x[m]) for m, op in enumerate(ops_)])

@@ -3,6 +3,12 @@
 Port of shakti_tpu/solve/krylov.py.  Each ``lax.while_loop`` becomes a
 Python loop whose ``norm(r) > tol`` test is one host sync per iteration
 (ROADMAP kernel item K8 moves the loop onto the device).
+
+:func:`pcg_batched` and :func:`bicgstab_batched` solve an ensemble's M
+systems at once, as ``jax.vmap`` of the JAX solvers does: each member
+iterates until its own test stops it and then keeps its iterate, and the
+loop runs while any member is live (one host read per iteration).  A
+member's iterates are those of its own single solve.
 """
 
 from __future__ import annotations
@@ -10,12 +16,12 @@ from __future__ import annotations
 import torch
 
 
-def dot(a, b):
-    return torch.sum(a * b)
+def dot(a, b, dim=None):
+    return torch.sum(a * b, dim=dim)
 
 
-def norm(a):
-    return torch.linalg.vector_norm(a)
+def norm(a, dim=None):
+    return torch.linalg.vector_norm(a, dim=dim)
 
 
 def pcg(matvec, b, minv=None, x0=None, *, rtol=1e-8, atol=0.0, maxiter=1000):
@@ -83,6 +89,92 @@ def bicgstab(matvec, b, minv=None, x0=None, *, rtol=1e-8, atol=0.0,
     return x, {"iters": k, "resnorm": resnorm, "converged": resnorm <= tol}
 
 
+def _live(active, r, tol, k, maxiter):
+    return active & (norm(r, dim=-1).double() > tol) & (k < maxiter)
+
+
+def pcg_batched(matvec, b, minv=None, *, rtol=1e-8, atol=0.0, maxiter=1000,
+                active=None):
+    """:func:`pcg` for M systems at once: ``b`` (M, n), ``matvec`` and
+    ``minv`` map (M, n) to (M, n) (``minv`` may be a (M, n) diagonal
+    inverse), ``atol`` a number or a (M,) tensor; members outside the bool
+    (M,) ``active`` do not iterate.  Returns (x, info) with info =
+    dict(iters, resnorm, converged) as (M,) tensors."""
+    x = torch.zeros_like(b)
+    apply_pc = _preconditioner(minv)
+    k = torch.zeros(b.shape[0], dtype=torch.int64, device=b.device)
+    active = (torch.ones_like(k, dtype=torch.bool) if active is None
+              else active)
+    tol = torch.clamp_min(rtol * norm(b, dim=-1).double(), atol)
+    r = b - matvec(x)
+    z = apply_pc(r)
+    p = z
+    rz = dot(r, z, dim=-1)
+    live = _live(active, r, tol, k, maxiter)
+    while bool(live.any()):
+        Ap = matvec(p)
+        pAp = dot(p, Ap, dim=-1)
+        alpha = (rz / torch.where(pAp == 0, 1.0, pAp))[:, None]
+        r_new = r - alpha * Ap
+        z = apply_pc(r_new)
+        rz_new = dot(r_new, z, dim=-1)
+        beta = (rz_new / torch.where(rz == 0, 1.0, rz))[:, None]
+        lv = live[:, None]
+        x = torch.where(lv, x + alpha * p, x)
+        r = torch.where(lv, r_new, r)
+        p = torch.where(lv, z + beta * p, p)
+        rz = torch.where(live, rz_new, rz)
+        k = k + live
+        live = _live(live, r, tol, k, maxiter)
+    resnorm = norm(r, dim=-1).double()
+    return x, {"iters": k, "resnorm": resnorm, "converged": resnorm <= tol}
+
+
+def bicgstab_batched(matvec, b, minv=None, *, rtol=1e-8, atol=0.0,
+                     maxiter=1000, active=None):
+    """:func:`bicgstab` for M systems at once (arguments and result as in
+    :func:`pcg_batched`)."""
+    x = torch.zeros_like(b)
+    apply_pc = _preconditioner(minv)
+    M = b.shape[0]
+    k = torch.zeros(M, dtype=torch.int64, device=b.device)
+    active = (torch.ones_like(k, dtype=torch.bool) if active is None
+              else active)
+    tol = torch.clamp_min(rtol * norm(b, dim=-1).double(), atol)
+    r = b - matvec(x)
+    rhat = r
+    p = v = torch.zeros_like(b)
+    rho = alpha = omega = torch.ones(M, dtype=b.dtype, device=b.device)
+    live = _live(active, r, tol, k, maxiter)
+    while bool(live.any()):
+        rho_new = dot(rhat, r, dim=-1)
+        beta = (rho_new / torch.where(rho == 0, 1.0, rho)) * (
+            alpha / torch.where(omega == 0, 1.0, omega))
+        p_new = r + beta[:, None] * (p - omega[:, None] * v)
+        phat = apply_pc(p_new)
+        v_new = matvec(phat)
+        denom = dot(rhat, v_new, dim=-1)
+        alpha_new = rho_new / torch.where(denom == 0, 1.0, denom)
+        s = r - alpha_new[:, None] * v_new
+        shat = apply_pc(s)
+        t = matvec(shat)
+        tt = dot(t, t, dim=-1)
+        omega_new = dot(t, s, dim=-1) / torch.where(tt == 0, 1.0, tt)
+        lv = live[:, None]
+        x = torch.where(lv, x + alpha_new[:, None] * phat
+                        + omega_new[:, None] * shat, x)
+        r = torch.where(lv, s - omega_new[:, None] * t, r)
+        p = torch.where(lv, p_new, p)
+        v = torch.where(lv, v_new, v)
+        rho = torch.where(live, rho_new, rho)
+        alpha = torch.where(live, alpha_new, alpha)
+        omega = torch.where(live, omega_new, omega)
+        k = k + live
+        live = _live(live, r, tol, k, maxiter)
+    resnorm = norm(r, dim=-1).double()
+    return x, {"iters": k, "resnorm": resnorm, "converged": resnorm <= tol}
+
+
 def _preconditioner(minv):
     if minv is None:
         return lambda r: r
@@ -92,10 +184,12 @@ def _preconditioner(minv):
 
 
 SOLVERS = {"cg": pcg, "bicgstab": bicgstab}
+BATCHED_SOLVERS = {"cg": pcg_batched, "bicgstab": bicgstab_batched}
 
 
-def get_solver(name: str):
+def get_solver(name: str, batched: bool = False):
+    """The solver ``name`` ('cg' or 'bicgstab'), or its batched form."""
     if name not in SOLVERS:
         raise ValueError(f"Krylov solver must be one of {sorted(SOLVERS)}, "
                          f"got {name!r}")
-    return SOLVERS[name]
+    return (BATCHED_SOLVERS if batched else SOLVERS)[name]

@@ -8,6 +8,11 @@ with atol_eff floored at the residual's roundoff sensitivity (the
 best-iterate acceptance; and the lagged-operator carry (iteration 0 of a
 step reuses the previous step's folded operator and coarse inverse while
 the carry is young enough).
+
+:func:`newton_solve_batched` solves an ensemble's M problems at once, as
+``jax.vmap`` of the JAX solve does: every control quantity is an (M,)
+tensor, a member that has stopped keeps its iterate, and each loop runs
+while any member is running (one host read per iteration).
 """
 
 from __future__ import annotations
@@ -28,8 +33,8 @@ class NewtonConfig:
     shakti_tpu.solve.newton.NewtonConfig (see there for each knob's
     rationale).  ``precond``: 'jacobi', 'two_level' or 'mg' (the multilevel
     V-cycle of solve/mg.py, tuned by the mg_* fields).  differentiable=True
-    is accepted for compatibility but not ported yet; using it raises
-    NotImplementedError."""
+    routes the transient's N-solve through the implicit-function adjoint
+    (solve/implicit.py); it needs lag_operator off."""
 
     rtol: float = 1e-9
     atol: float = 1e-10
@@ -84,6 +89,34 @@ def diag_floor_extra(a_diag, dirichlet, mesh, rel):
     return torch.where(dirichlet, 0.0, torch.clamp_min(rel * dmax - a_diag, 0.0))
 
 
+def linear_operator(J_c, mesh, dirichlet, cfg: NewtonConfig):
+    """(matvec, preconditioner) of A = -J from the element blocks J_c: the
+    blocks folded into the mesh's format (or the matrix-free product), the
+    degenerate-row diagonal floor (diag_floor_rel) fused into the matvec,
+    and cfg.precond built from them.  mg smooths with that matvec, the
+    regularized operator the Krylov solver gets: the cycle is SPD only
+    with it.  The Newton iteration without the carry calls it with J, the
+    adjoint (solve/implicit.py) with J's transposed blocks."""
+    vals = None
+    if res.has_values(mesh):
+        vals = res.fold_operator_values(J_c, mesh)
+        a_diag = res.operator_diag_from_values(vals, mesh)
+    else:
+        a_diag = -res.jacobian_diag(J_c, mesh)
+    extra = diag_floor_extra(a_diag, dirichlet, mesh, cfg.diag_floor_rel)
+    if vals is not None:
+        matvec = res.operator_from_values(vals, mesh, dirichlet, extra)
+    else:
+        matvec = res.make_matvec(J_c, mesh, dirichlet, extra)
+    minv = pc.make_preconditioner(
+        cfg.precond, mesh, dirichlet, a_diag + extra, cfg.coarse_block,
+        vals=vals, J_c=J_c, matvec=matvec, mg_omega=cfg.mg_omega,
+        mg_smoother=cfg.mg_smoother, mg_cheb_deg=cfg.mg_cheb_deg,
+        mg_cheb_frac=cfg.mg_cheb_frac, mg_cycle=cfg.mg_cycle,
+        mg_smooth_p=cfg.mg_smooth_p)
+    return matvec, minv
+
+
 def zero_lag(mesh, dtype, cfg: NewtonConfig):
     """Invalid-but-shape-correct lag carry for State.lag_op:
     (ok, age, vals, a_diag, A_inv, floor, floor_age) with ok=False, in the
@@ -102,16 +135,15 @@ def zero_lag(mesh, dtype, cfg: NewtonConfig):
 
 
 def check_config(cfg: NewtonConfig):
-    """Raise ValueError for an unknown preconditioner and
-    NotImplementedError for the options the port does not have yet."""
+    """Raise ValueError for an unknown preconditioner, and for
+    differentiable=True with the operator carry on (the carry is state the
+    adjoint cannot differentiate)."""
     if cfg.precond not in pc.PRECONDITIONERS:
         raise ValueError(f"precond must be one of {pc.PRECONDITIONERS}, "
                          f"got {cfg.precond!r}")
-    if cfg.differentiable:
-        raise NotImplementedError(
-            "differentiable=True: the implicit-function adjoint "
-            "(solve/implicit.py) is not ported yet (ROADMAP, still to port: "
-            "implicit)")
+    if cfg.differentiable and cfg.lag_operator:
+        raise ValueError("differentiable=True requires lag_operator=False "
+                         "(the operator carry is stateful)")
 
 
 def newton_solve(N_init, pre, mesh, dirichlet, dirichlet_value, params,
@@ -187,42 +219,24 @@ def newton_solve(N_init, pre, mesh, dirichlet, dirichlet_value, params,
 
     def iterate(reuse_op: bool):
         N, rnorm = s["N"], s["rnorm"]
-        J_c = vals = None
-        if reuse_op:
-            # iteration 0 under cfg.lag_operator: the carried operator
-            _, _, vals, a_diag, A_inv, _, _ = s["op"]
-        elif lag_on:
-            # rebuild at the current iterate and refresh the carry
-            s["op"] = build_op(N)
-            _, _, vals, a_diag, A_inv, _, _ = s["op"]
+        if not lag_on:
+            matvec, minv = linear_operator(
+                res.element_jacobian(N, pre, mesh, params), mesh, dirichlet,
+                cfg)
         else:
-            J_c = res.element_jacobian(N, pre, mesh, params)
-            if res.has_values(mesh):
-                vals = res.fold_operator_values(J_c, mesh)
-                a_diag = res.operator_diag_from_values(vals, mesh)
-            else:
-                a_diag = -res.jacobian_diag(J_c, mesh)
-        # regularize degenerate (clamped-sheet) rows: see diag_floor_rel
-        extra = diag_floor_extra(a_diag, dirichlet, mesh, cfg.diag_floor_rel)
-        if vals is not None:
+            # iteration 0 reuses the carried operator; later ones rebuild
+            # it at the current iterate and refresh the carry
+            if not reuse_op:
+                s["op"] = build_op(N)
+            _, _, vals, a_diag, A_inv, _, _ = s["op"]
+            extra = diag_floor_extra(a_diag, dirichlet, mesh,
+                                     cfg.diag_floor_rel)
             matvec = res.operator_from_values(vals, mesh, dirichlet, extra)
-        else:
-            matvec = res.make_matvec(J_c, mesh, dirichlet, extra)
-        a_diag = a_diag + extra
-        if lag_on:
+            a_diag = a_diag + extra
             minv = (pc.two_level_from_inverse(A_inv, a_diag, dirichlet,
                                               cfg.coarse_block, mesh.n_nodes)
                     if use_two_level
                     else pc.make_jacobi(a_diag, dirichlet, tiny))
-        else:
-            # mg smooths with ``matvec``, the regularized operator CG gets:
-            # the cycle is SPD only with that exact operator
-            minv = pc.make_preconditioner(
-                cfg.precond, mesh, dirichlet, a_diag, cfg.coarse_block,
-                vals=vals, J_c=J_c, matvec=matvec, mg_omega=cfg.mg_omega,
-                mg_smoother=cfg.mg_smoother, mg_cheb_deg=cfg.mg_cheb_deg,
-                mg_cheb_frac=cfg.mg_cheb_frac, mg_cycle=cfg.mg_cycle,
-                mg_smooth_p=cfg.mg_smooth_p)
         dN, lin_info = lin_solve(matvec, s["r"], minv, rtol=cfg.lin_rtol,
                                  atol=0.1 * atol_eff, maxiter=cfg.lin_maxiter)
         a = cfg.relaxation
@@ -276,3 +290,148 @@ def newton_solve(N_init, pre, mesh, dirichlet, dirichlet_value, params,
         # the step's floor always enters the carry, even on reuse-only steps
         stats["lag"] = s["op"][:5] + (floor_b, floor_age_this)
     return N_out, stats
+
+
+def newton_solve_batched(N_init, pre, mesh, dirichlet, dirichlet_value,
+                         params, cfg: NewtonConfig, N_ref=None):
+    """:func:`newton_solve` for M members at once, without the operator
+    carry: ``N_init``/``N_ref`` (M, n), every field of ``pre`` with a
+    leading member axis (physics/residual.PRE_FIELDS).  Each member follows
+    its own single solve (its floor probe, tolerances, line search, stall
+    count and best iterate); one that has stopped keeps its iterate while
+    the others go on.  The residual, element Jacobian, fold and diagonal are
+    ``torch.func.vmap`` of the single-member functions; the matvec is the
+    batched operator (residual.batched_operator), the preconditioner
+    precond.make_preconditioner_batched, the Krylov solve the batched one.
+
+    Returns (N (M, n), stats) with stats = dict(iters, rnorm0, rnorm,
+    converged, cg_iters) as (M,) numpy arrays."""
+    check_config(cfg)
+    if cfg.lag_operator:
+        raise ValueError("newton_solve_batched has no operator carry: "
+                         "lag_operator must be off")
+    if cfg.coarse_block is None:
+        cfg = dataclasses.replace(cfg, coarse_block=64)
+    lin_solve = krylov.get_solver(cfg.krylov, batched=True)
+    vals_pre = res.pre_values(pre)
+
+    def per_member(fn):
+        return torch.func.vmap(lambda N, *p: fn(N, res.StepPre(*p)))
+
+    v_resid = per_member(lambda N, p: res.assemble_residual(N, p, mesh,
+                                                            params))
+    v_multi = per_member(lambda N, p: res.assemble_residual_multi(N, p, mesh,
+                                                                  params))
+    v_jac = per_member(lambda N, p: res.element_jacobian(N, p, mesh, params))
+
+    def norm(x):
+        return krylov.norm(x, dim=-1).double()
+
+    def resid(N):
+        return torch.where(dirichlet, 0.0, v_resid(N, *vals_pre))
+
+    N0 = torch.where(dirichlet, dirichlet_value, N_init)
+    Nr = N0 if N_ref is None else torch.where(dirichlet, dirichlet_value, N_ref)
+    fi = torch.finfo(N0.dtype)
+    tiny, eps = fi.tiny, fi.eps
+    sign = 1.0 - 2.0 * (torch.arange(N0.shape[-1], device=N0.device) % 2).to(N0.dtype)
+    cols = v_multi(torch.stack([Nr, N0, Nr + eps * torch.abs(Nr) * sign],
+                               dim=-1), *vals_pre)
+    cols = torch.where(dirichlet[:, None], 0.0, cols)
+    r_ref, r0 = cols[..., 0], cols[..., 1]
+    floor_b = norm(cols[..., 2] - r_ref)
+    rnorm_ref, rnorm0 = norm(r_ref), norm(r0)
+    atol_eff = torch.clamp_min(cfg.floor_mult * floor_b, cfg.atol)
+    skip = rnorm_ref <= atol_eff
+    rscale = torch.clamp_min(rnorm_ref, tiny)
+
+    def converged_fn(rnorm):
+        return (rnorm < atol_eff) | (rnorm <= cfg.rtol * rscale)
+
+    M = N0.shape[0]
+    zero = torch.zeros(M, dtype=torch.int64, device=N0.device)
+    N, r, rnorm = N0, r0, rnorm0
+    N_best, rn_best = N0, rnorm0
+    stall, k, cg_total = zero, zero, zero
+    bad, done = ~torch.isfinite(rnorm0), skip
+
+    def running_fn():
+        return (~done & (k < cfg.max_iter) & ~bad
+                & (stall < cfg.stall_patience))
+
+    running = running_fn()
+    while bool(running.any()):
+        J_c = v_jac(N, *vals_pre)
+        vals = None
+        if res.has_values(mesh):
+            vals = torch.func.vmap(
+                lambda J: res.fold_operator_values(J, mesh))(J_c)
+            a_diag = torch.func.vmap(
+                lambda v: res.operator_diag_from_values(v, mesh))(vals)
+        else:
+            a_diag = -torch.func.vmap(
+                lambda J: res.jacobian_diag(J, mesh))(J_c)
+        extra = torch.func.vmap(lambda a: diag_floor_extra(
+            a, dirichlet, mesh, cfg.diag_floor_rel))(a_diag)
+        matvec = res.batched_operator(vals, J_c, mesh, dirichlet, extra)
+        a_diag = a_diag + extra
+        matvecs = (res.member_operators(vals, J_c, mesh, dirichlet, extra)
+                   if cfg.precond == "mg" and mesh.mg is not None else None)
+        minv = pc.make_preconditioner_batched(
+            cfg.precond, mesh, dirichlet, a_diag, cfg.coarse_block,
+            vals=vals, J_c=J_c, matvecs=matvecs, mg_omega=cfg.mg_omega,
+            mg_smoother=cfg.mg_smoother, mg_cheb_deg=cfg.mg_cheb_deg,
+            mg_cheb_frac=cfg.mg_cheb_frac, mg_cycle=cfg.mg_cycle,
+            mg_smooth_p=cfg.mg_smooth_p)
+        dN, lin_info = lin_solve(matvec, r, minv, rtol=cfg.lin_rtol,
+                                 atol=0.1 * atol_eff, maxiter=cfg.lin_maxiter,
+                                 active=running)
+        # the step length per member: float64 for the tests (as the single
+        # solve's Python floats), the iterate's type for the update
+        a = torch.full((M,), float(cfg.relaxation), dtype=torch.float64,
+                       device=N.device)
+        N_new = N + a.to(N.dtype)[:, None] * dN
+        r_new = resid(N_new)
+        rn_new = norm(r_new)
+        tries = zero
+        # lazy backtracking, per member: extra residuals only where the full
+        # step failed to reduce the residual enough
+        need = (running & (rn_new > (1.0 - 1e-4 * a) * rnorm)
+                & (tries < cfg.ls_backtracks))
+        while bool(need.any()):
+            a = torch.where(need, 0.5 * a, a)
+            N_try = N + a.to(N.dtype)[:, None] * dN
+            r_try = resid(N_try)
+            nd = need[:, None]
+            N_new = torch.where(nd, N_try, N_new)
+            r_new = torch.where(nd, r_try, r_new)
+            rn_new = torch.where(need, norm(r_try), rn_new)
+            tries = tries + need
+            need = (need & (rn_new > (1.0 - 1e-4 * a) * rnorm)
+                    & (tries < cfg.ls_backtracks))
+        inc_ok = (cfg.inc_rtol > 0.0) & (
+            norm(dN) <= cfg.inc_rtol * norm(N_new))
+        progress = rn_new < cfg.stall_factor * rn_best
+        better = running & (rn_new < rn_best)
+        N_best = torch.where(better[:, None], N_new, N_best)
+        rn_best = torch.where(better, rn_new, rn_best)
+        rv = running[:, None]
+        N = torch.where(rv, N_new, N)
+        r = torch.where(rv, r_new, r)
+        rnorm = torch.where(running, rn_new, rnorm)
+        stall = torch.where(running, torch.where(progress, 0, stall + 1),
+                            stall)
+        k = k + running
+        cg_total = cg_total + torch.where(running, lin_info["iters"], 0)
+        bad = torch.where(running, ~torch.isfinite(rn_new), bad)
+        done = torch.where(running, converged_fn(rn_new) | inc_ok, done)
+        running = running_fn()
+
+    N_out = torch.where(skip[:, None], Nr,
+                        torch.where(done[:, None], N, N_best))
+    rn_out = torch.where(skip, rnorm_ref, torch.where(done, rnorm, rn_best))
+    accepted = skip | done | (rn_out <= cfg.stall_rtol * rscale)
+    host = {k_: v.cpu().numpy() for k_, v in dict(
+        iters=k, rnorm0=rnorm0, rnorm=rn_out, converged=accepted & ~bad,
+        cg_iters=cg_total).items()}
+    return N_out, host

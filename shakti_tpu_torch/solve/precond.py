@@ -176,17 +176,20 @@ def coarse_from_values(vals, mesh, dirichlet, block: int = 64):
 
 def two_level_from_inverse(A_inv, a_diag, dirichlet, block: int, n: int):
     """Two-level apply z = D^{-1} r + P A_inv P^T r from a prebuilt coarse
-    inverse (possibly carried from an earlier step)."""
-    m = A_inv.shape[0]
+    inverse (possibly carried from an earlier step).  A batch: A_inv (M, m,
+    m), a_diag and r (M, n), the coarse product ``torch.matmul``."""
+    m = A_inv.shape[-1]
     pad = m * block - n
     tiny = torch.finfo(a_diag.dtype).tiny
     jacobi = make_jacobi(a_diag, dirichlet, tiny)
 
     def apply(r):
         rf = torch.where(dirichlet, 0.0, r)
-        rc = torch.nn.functional.pad(rf, (0, pad)).reshape(m, block).sum(dim=1)
-        zc = A_inv @ rc
-        z_coarse = torch.repeat_interleave(zc, block)[:n]
+        rc = torch.nn.functional.pad(rf, (0, pad)).reshape(
+            *rf.shape[:-1], m, block).sum(dim=-1)
+        zc = (A_inv @ rc if A_inv.dim() == 2
+              else torch.matmul(A_inv, rc.unsqueeze(-1)).squeeze(-1))
+        z_coarse = torch.repeat_interleave(zc, block, dim=-1)[..., :n]
         return jacobi(r) + torch.where(dirichlet, 0.0, z_coarse)
 
     return apply
@@ -224,3 +227,29 @@ def make_preconditioner(name: str, mesh, dirichlet, a_diag,
         return make_jacobi(a_diag, dirichlet, torch.finfo(a_diag.dtype).tiny)
     raise ValueError(f"preconditioner must be one of {PRECONDITIONERS}, "
                      f"got {name!r}")
+
+
+def make_preconditioner_batched(name: str, mesh, dirichlet, a_diag,
+                                coarse_block: int = 64, *, vals=None,
+                                J_c=None, matvecs=None, **mg_kw):
+    """:func:`make_preconditioner` for an ensemble's M operators (a_diag
+    (M, n), ``vals`` (M, ...) or ``J_c`` (M, c, 3, 3), ``matvecs`` the
+    members' single matvecs): an apply (M, n) -> (M, n).  Jacobi and
+    two-level are batched (the coarse inverses (M, m, m), built per member
+    by ``torch.func.vmap``); 'mg' builds and applies each member's own
+    V-cycle in turn (a batched mg apply is future work)."""
+    if name == "mg" and mesh.mg is not None:
+        applies = [make_preconditioner(
+            "mg", mesh, dirichlet, a_diag[m], coarse_block, J_c=J_c[m],
+            matvec=matvecs[m], **mg_kw) for m in range(a_diag.shape[0])]
+        return lambda r: torch.stack([f(r[m]) for m, f in enumerate(applies)])
+    if name in ("mg", "two_level"):
+        if vals is not None and vals_coarse_ok(mesh, coarse_block):
+            A_inv = torch.func.vmap(lambda v: coarse_from_values(
+                v, mesh, dirichlet, coarse_block))(vals)
+        else:
+            A_inv = torch.func.vmap(lambda J: coarse_inverse(
+                J, mesh, dirichlet, coarse_block))(J_c)
+        return two_level_from_inverse(A_inv, a_diag, dirichlet, coarse_block,
+                                      mesh.n_nodes)
+    return make_preconditioner(name, mesh, dirichlet, a_diag, coarse_block)

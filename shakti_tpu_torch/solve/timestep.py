@@ -28,6 +28,7 @@ from shakti_tpu_torch.fem.ops import fixed_sum
 from shakti_tpu_torch.params import PhysicalParams
 from shakti_tpu_torch.physics import constitutive as law
 from shakti_tpu_torch.physics import residual as res
+from shakti_tpu_torch.solve.implicit import make_implicit_solver
 from shakti_tpu_torch.solve.newton import NewtonConfig, check_config, newton_solve
 
 
@@ -79,97 +80,132 @@ def make_static_fields(mesh, z_b, z_s, G, inputs, storage, dirichlet_mask,
         b_max=None if b_max is None else as_f(b_max))
 
 
+def forcing_terms(sq, forcing):
+    """(dt, dt_b, sq_t) of one step's ``forcing``: a 0-d dt tensor or a dict
+    with 'dt' and optional 'inputs_scale' (seasonal) / 'melt_a' + 'melt_b'
+    (degree-day) / 'dt_b' (per-node gap-update step); ``sq_t`` is the static
+    quadrature fields ``sq`` with the step's meltwater input."""
+    if isinstance(forcing, dict):
+        dt = forcing["dt"]
+        scale = forcing.get("inputs_scale")
+        melt_a = forcing.get("melt_a")
+        dt_b = forcing.get("dt_b")
+    else:
+        dt, scale, melt_a, dt_b = forcing, None, None, None
+    dt_b = dt if dt_b is None else dt_b
+    inputs_q = sq["inputs_q"]
+    if scale is not None:
+        inputs_q = inputs_q * scale
+    if melt_a is not None:
+        # degree-day surface melt routed to the bed (SHMIP D/F forcing);
+        # torch.maximum, not clamp_min: a tie splits the gradient as
+        # jnp.maximum does
+        inputs_q = inputs_q + torch.maximum(
+            inputs_q.new_zeros(()), melt_a - forcing["melt_b"] * sq["zs_q"])
+    sq_t = dict(sq, inputs_q=inputs_q) if inputs_q is not sq["inputs_q"] \
+        else sq
+    return dt, dt_b, sq_t
+
+
+def explicit_update(mesh, static: StaticFields, p: PhysicalParams, N, b,
+                    q_old, melt_old, dt_b, b_update: str = "explicit"):
+    """Steps 2-5 of a step from the solved N: (q, melt, b).  Re from the
+    OLD q; melt from the NEW q with the OLD b and melt in the
+    regularization; b from the NEW q and NEW melt in the regularization and
+    the OLD b elsewhere, clamped to [b_min, b_max]."""
+    # ---- fused corner gather of [N, b, melt] + cellwise gradients ----
+    sc = ops.gather_cells(mesh, torch.stack([N, b, melt_old], 1))
+    g = fixed_sum(ops.center(sc)[:, :, :, None]
+                  * mesh.grads[:, :, None, :], 1)                # (c, 3, 2)
+    grad_h_c = static.gb0 - g[:, 0] / (p.rho_w * p.g)
+    grad_b_c, grad_m_c = g[:, 1], g[:, 2]
+    b_cell, melt_cell = sc[:, :, 1], sc[:, :, 2]
+    mdiff_old_ci = law.melt_regularization(
+        b_cell, melt_cell, grad_b_c[:, None, :], grad_m_c[:, None, :])
+
+    # ---- fused cell->node averaging: [grad_h (2), mdiff_old (1)] ----
+    pack = torch.cat([grad_h_c[:, None, :].expand(-1, 3, -1),
+                      mdiff_old_ci[:, :, None]], dim=-1)         # (c, 3, 3)
+    avg = ops.cellnodal_to_node_avg(mesh, pack)
+    grad_h_n, mdiff_old_n = avg[:, :2], avg[:, 2]
+
+    # ---- 2. q update: Re from OLD q ----
+    q = law.water_flux(b, grad_h_n, law.reynolds(q_old, p), p)
+    # ---- 3. melt update: NEW q, OLD b, OLD melt in the regularization
+    m0 = law.melt_opening(q, grad_h_n, static.G, p)
+    melt = m0 + mdiff_old_n
+    # ---- 4. b update with NEW q and NEW melt in the regularization ----
+    melt_cell_new = ops.gather_cells(mesh, melt)
+    grad_m_new = fixed_sum(ops.center(melt_cell_new)[:, :, None]
+                           * mesh.grads, 1)
+    mdiff_new_ci = law.melt_regularization(
+        b_cell, melt_cell_new, grad_b_c[:, None, :], grad_m_new[:, None, :])
+    melt_for_b = m0 + ops.cellnodal_to_node_avg(mesh, mdiff_new_ci)
+    if b_update == "semi_implicit":
+        # only the decay part of the closure rate goes implicit; maximum and
+        # minimum (not clamps) split a tie's gradient as the JAX package does
+        crate = law.closure_rate(N, p)
+        zero = crate.new_zeros(())
+        b_new = ((b + dt_b * (melt_for_b / p.rho_i
+                              - torch.minimum(crate, zero) * b))
+                 / (1.0 + dt_b * torch.maximum(crate, zero)))
+    else:
+        b_new = b + dt_b * (melt_for_b / p.rho_i - law.closure(b, N, p))
+    # ---- 5. clamp ----
+    b_new = torch.maximum(b_new, static.b_min)
+    if static.b_max is not None:
+        b_new = torch.minimum(b_new, static.b_max)
+    return q, melt, b_new
+
+
+def newton_guess(state: State, cfg: NewtonConfig):
+    """Newton's initial iterate: the linear extrapolation 2 N - N_prev when
+    enabled, else N."""
+    if cfg.extrapolate_guess and state.N_prev is not None:
+        return 2.0 * state.N - state.N_prev
+    return state.N
+
+
 def make_step_fn(mesh, static: StaticFields, params: PhysicalParams,
                  cfg: NewtonConfig, b_update: str = "explicit"):
     """Returns step(state, forcing) -> (state, diagnostics).
 
-    ``forcing`` is a 0-d dt tensor or a dict with 'dt' and optional
-    'inputs_scale' (seasonal) / 'melt_a' + 'melt_b' (degree-day) / 'dt_b'
-    (per-node gap-update step).  ``b_update``: "explicit" (forward Euler,
-    the reference scheme) or "semi_implicit" (backward-Euler closure)."""
+    ``forcing``: see :func:`forcing_terms`.  ``b_update``: "explicit"
+    (forward Euler, the reference scheme) or "semi_implicit" (backward-Euler
+    closure).  With cfg.differentiable the N-solve is the implicit-function
+    adjoint's (solve/implicit.py): the step, and a run_window over it, is
+    then differentiable with torch.autograd, and its forward unchanged."""
     if b_update not in ("explicit", "semi_implicit"):
         raise ValueError(f"b_update must be 'explicit' or 'semi_implicit', "
                          f"got {b_update!r}")
     check_config(cfg)
     p = params
     sq = res.static_quad_fields(mesh, static, cfg.quad_degree, mesh.nodes.dtype)
+    implicit_solve = None
+    if cfg.differentiable:
+        implicit_solve = make_implicit_solver(mesh, static.dirichlet,
+                                              static.N_bdry, params, cfg)
 
     def step(state: State, forcing):
-        if isinstance(forcing, dict):
-            dt = forcing["dt"]
-            scale = forcing.get("inputs_scale")
-            melt_a = forcing.get("melt_a")
-            dt_b = forcing.get("dt_b")
-        else:
-            dt, scale, melt_a, dt_b = forcing, None, None, None
-        dt_b = dt if dt_b is None else dt_b
-        inputs_q = sq["inputs_q"]
-        if scale is not None:
-            inputs_q = inputs_q * scale
-        if melt_a is not None:
-            # degree-day surface melt routed to the bed (SHMIP D/F forcing)
-            inputs_q = inputs_q + torch.clamp_min(
-                melt_a - forcing["melt_b"] * sq["zs_q"], 0.0)
-        sq_t = dict(sq, inputs_q=inputs_q) if inputs_q is not sq["inputs_q"] \
-            else sq
+        dt, dt_b, sq_t = forcing_terms(sq, forcing)
         # ---- 1. implicit solve for N ----
         pre = res.precompute_step(mesh, state.N, state.b, state.q, state.melt,
                                   static, dt, p, cfg.quad_degree, sq=sq_t)
-        if cfg.extrapolate_guess and state.N_prev is not None:
-            guess = 2.0 * state.N - state.N_prev
+        guess = newton_guess(state, cfg)
+        if implicit_solve is not None:
+            N, stats = implicit_solve(guess, state.N, pre)
         else:
-            guess = state.N
-        N, stats = newton_solve(guess, pre, mesh, static.dirichlet,
-                                static.N_bdry, p, cfg, N_ref=state.N,
-                                lag=state.lag_op if cfg.lag_operator else None)
+            N, stats = newton_solve(guess, pre, mesh, static.dirichlet,
+                                    static.N_bdry, p, cfg, N_ref=state.N,
+                                    lag=state.lag_op if cfg.lag_operator
+                                    else None)
         if cfg.lag_operator:
             ok, age, vals, a_diag, A_inv, floor, fage = stats.pop("lag")
             lag_out = (ok, age + 1, vals, a_diag, A_inv, floor, fage + 1)
         else:
             lag_out = state.lag_op
-
-        # ---- fused corner gather of [N, b, melt] + cellwise gradients ----
-        sc = ops.gather_cells(mesh, torch.stack([N, state.b, state.melt], 1))
-        g = fixed_sum(ops.center(sc)[:, :, :, None]
-                      * mesh.grads[:, :, None, :], 1)            # (c, 3, 2)
-        grad_h_c = static.gb0 - g[:, 0] / (p.rho_w * p.g)
-        grad_b_c, grad_m_c = g[:, 1], g[:, 2]
-        b_cell, melt_cell = sc[:, :, 1], sc[:, :, 2]
-        mdiff_old_ci = law.melt_regularization(
-            b_cell, melt_cell, grad_b_c[:, None, :], grad_m_c[:, None, :])
-
-        # ---- fused cell->node averaging: [grad_h (2), mdiff_old (1)] ----
-        pack = torch.cat([grad_h_c[:, None, :].expand(-1, 3, -1),
-                          mdiff_old_ci[:, :, None]], dim=-1)     # (c, 3, 3)
-        avg = ops.cellnodal_to_node_avg(mesh, pack)
-        grad_h_n, mdiff_old_n = avg[:, :2], avg[:, 2]
-
-        # ---- 2. q update: Re from OLD q ----
-        q = law.water_flux(state.b, grad_h_n, law.reynolds(state.q, p), p)
-        # ---- 3. melt update: NEW q, OLD b, OLD melt in the regularization
-        m0 = law.melt_opening(q, grad_h_n, static.G, p)
-        melt = m0 + mdiff_old_n
-        # ---- 4. b update with NEW q and NEW melt in the regularization ----
-        melt_cell_new = ops.gather_cells(mesh, melt)
-        grad_m_new = fixed_sum(ops.center(melt_cell_new)[:, :, None]
-                               * mesh.grads, 1)
-        mdiff_new_ci = law.melt_regularization(
-            b_cell, melt_cell_new, grad_b_c[:, None, :], grad_m_new[:, None, :])
-        melt_for_b = m0 + ops.cellnodal_to_node_avg(mesh, mdiff_new_ci)
-        if b_update == "semi_implicit":
-            # only the decay part of the closure rate goes implicit
-            crate = law.closure_rate(N, p)
-            b = ((state.b + dt_b * (melt_for_b / p.rho_i
-                                    - torch.clamp_max(crate, 0.0) * state.b))
-                 / (1.0 + dt_b * torch.clamp_min(crate, 0.0)))
-        else:
-            b = state.b + dt_b * (melt_for_b / p.rho_i
-                                  - law.closure(state.b, N, p))
-        # ---- 5. clamp ----
-        b = torch.maximum(b, static.b_min)
-        if static.b_max is not None:
-            b = torch.minimum(b, static.b_max)
-
+        q, melt, b = explicit_update(mesh, static, p, N, state.b, state.q,
+                                     state.melt, dt_b, b_update)
         new_state = State(N=N, b=b, q=q, melt=melt, N_prev=state.N,
                           lag_op=lag_out)
         diag = {"newton_iters": stats["iters"], "rnorm": stats["rnorm"],
@@ -212,6 +248,20 @@ def with_dt_halving(base, level: int = 0, accept_rtol: float = 1e-4):
     return stepped
 
 
+def make_runner(params: PhysicalParams, cfg: NewtonConfig):
+    """runner(mesh, static, state, forcing) -> (state, diagnostics), which
+    builds the step inside each call: with cfg.differentiable, gradients of
+    a loss of its result then reach ``static``'s tensors (e.g. the
+    ``inputs`` field, through the quadrature fields) as well as the
+    state's and the forcing's."""
+
+    def runner(mesh, static, state, forcing):
+        return run_window(make_step_fn(mesh, static, params, cfg), state,
+                          forcing)
+
+    return runner
+
+
 def run_window(step_fn, state: State, forcing):
     """Run len(forcing) steps; returns (state, diagnostics stacked as numpy
     arrays).  ``forcing``: a 1-D dt tensor or a dict of per-step tensors."""
@@ -251,8 +301,9 @@ def make_forcing(timesteps, dtype=torch.float64, device="cpu", seasonal=None,
     if seasonal is not None:
         amp, period, phase = seasonal
         t = torch.as_tensor(t64, dtype=dtype, device=device)
-        f["inputs_scale"] = torch.clamp_min(
-            1.0 + amp * torch.sin(2.0 * math.pi * t / period + phase), 0.0)
+        f["inputs_scale"] = torch.maximum(
+            t.new_zeros(()),
+            1.0 + amp * torch.sin(2.0 * math.pi * t / period + phase))
     if degree_day is not None:
         dd = dict(degree_day)
         ddf = dd.get("ddf", 0.01 / 86400.0)

@@ -10,6 +10,7 @@ import torch
 from shakti_tpu.params import DEFAULT_PARAMS as P
 from shakti_tpu.physics import constitutive as jlaw
 from shakti_tpu_torch.physics import constitutive as tlaw
+from tests import torch_parity  # noqa: F401  (pins torch's threads)
 
 RTOL = 1e-13
 

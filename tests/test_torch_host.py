@@ -25,6 +25,7 @@ from shakti_tpu_torch.mesh import generate as tgen
 from shakti_tpu_torch.mesh import geometry as tgeo
 from shakti_tpu_torch.mesh import msh_io as tmsh
 from shakti_tpu_torch.parallel import partition as tpart
+from tests import torch_parity  # noqa: F401  (pins torch's threads)
 
 BENCH_MSH = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "assets", "cooke2_synth", "Cook_E2_mesh.msh")

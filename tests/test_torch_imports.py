@@ -13,6 +13,8 @@ from pathlib import Path
 
 import pytest
 
+from tests import torch_parity  # noqa: F401  (pins torch's threads)
+
 ROOT = Path(__file__).resolve().parents[1]
 SOURCES = sorted(str(p.relative_to(ROOT))
                  for p in (ROOT / "shakti_tpu_torch").rglob("*.py")) + [
@@ -61,6 +63,12 @@ for m in pkgutil.walk_packages(shakti_tpu_torch.__path__, "shakti_tpu_torch."):
         importlib.import_module(m.name)
 from shakti_tpu_torch.setups import setup_lake
 from shakti_tpu_torch.physics.residual import operator_from_values
+from shakti_tpu_torch.parallel import ensemble
+from shakti_tpu_torch.solve import implicit
+for name in ("stack_states", "perturbed_ensemble", "make_ensemble_step_fn",
+             "make_ensemble_runner"):
+    assert callable(getattr(ensemble, name)), name
+assert callable(implicit.make_implicit_solver)
 md = setup_lake.initialize(nx=6, ny=6)
 md.dtype = torch.float64
 mesh, static, state, cfg = md.freeze("cpu")

@@ -68,8 +68,8 @@ def slab24():
     J = np.array(jres.element_jacobian(state.N, pre, mesh, md.params))
     tm, ts, tst, tcfg = problem_from_numpy(
         *frozen_to_numpy(mesh, static, state, cfg))
-    return dict(md=md, mesh=mesh, static=static, cfg=cfg, J=J, tm=tm, ts=ts,
-                tcfg=tcfg)
+    return dict(md=md, mesh=mesh, static=static, state=state, cfg=cfg, J=J,
+                tm=tm, ts=ts, tcfg=tcfg)
 
 
 def test_hierarchy_equals_jax(slab24):
@@ -148,10 +148,14 @@ def test_apply_matches_jax(slab24, smoother, cycle, smooth_p):
 
 
 @pytest.mark.parametrize("op", ["bell", "ell", "bcsr", "cells"])
-def test_steps_match_jax(op):
+def test_steps_match_jax(op, slab24):
     """Four steps of the 24x24 slab under mg (cheb, V) through the same
-    frozen problem in each format."""
-    md, (mesh, static, state, cfg) = _jax_problem(op=op, **MG)
+    frozen problem in each format (ELL's is the module's)."""
+    if op == "ell":
+        md, mesh, static, state, cfg = (slab24[k] for k in (
+            "md", "mesh", "static", "state", "cfg"))
+    else:
+        md, (mesh, static, state, cfg) = _jax_problem(op=op, **MG)
     assert mesh.mg is not None and not cfg.lag_operator
     jstep = jax.jit(jstep_fn(mesh, static, md.params, cfg))
     dts = np.asarray(jdts(md.timesteps, dtype=md.dtype))[:4]

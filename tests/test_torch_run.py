@@ -13,6 +13,7 @@ import setups.setup_lake as jlake
 import setups.setup_slab as jslab
 from shakti_tpu_torch.setups import setup_lake as tlake
 from shakti_tpu_torch.setups import setup_slab as tslab
+from tests import torch_parity  # noqa: F401  (pins torch's threads)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARRAYS = ("nodes", "cells", "z_b", "z_s", "G", "inputs", "b_init", "N_init",
@@ -101,10 +102,11 @@ def test_cuda_request_without_gpu_raises(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("what", ["operator", "mg", "differentiable"])
 def test_unported_options_raise(what):
-    """What stays unported raises NotImplementedError naming its ROADMAP
-    item; an unknown operator or preconditioner name raises ValueError.
+    """An unknown operator or preconditioner name raises ValueError.
     precond='mg' is ported: it solves, and the name next to it ('amg')
-    is unknown."""
+    is unknown.  differentiable=True is ported: with the operator carry
+    (block-ELL's auto default) it raises ValueError as in the JAX package,
+    without it the run solves."""
     import dataclasses
     md = tslab.initialize(nx=4, ny=4, days=1.0, nt_per_day=4)
     md.device, md.dtype = "cpu", torch.float64
@@ -121,8 +123,10 @@ def test_unported_options_raise(what):
             md.solve(progress=False)
         return
     md.solver = dataclasses.replace(md.solver, differentiable=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="differentiable"):
         md.solve(progress=False)
+    md.solver = dataclasses.replace(md.solver, lag_operator=False)
+    assert md.solve(progress=False)["steps"] == 4
 
 
 def test_port_never_imports_jax():

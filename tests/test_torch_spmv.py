@@ -18,6 +18,7 @@ from shakti_tpu.ops.spmv_pallas import bell_matvec_pallas
 from shakti_tpu_torch.mesh.mesh import build_mesh as tbuild
 from shakti_tpu_torch.ops import spmv_cuda
 from shakti_tpu_torch.ops.spmv_cuda import bell_operator, bell_operator_plain
+from tests import torch_parity  # noqa: F401  (pins torch's threads)
 
 
 def _operator(nx, ny, B, dtype, seed=0):
@@ -67,9 +68,13 @@ def test_cpu_tensors_do_not_count_launches():
     tv, tx = _torch(vals, x)
     before = dict(spmv_cuda.launches)
     matvec = spmv_cuda.bell_operator_fn(tv, tm)
+    batched = spmv_cuda.bell_operator_batched_fn(tv[None].repeat(2, 1, 1, 1, 1),
+                                                 tm)
     for _ in range(3):
         matvec(tx)
-    assert spmv_cuda.launches == before == {"bell_spmv": 0, "ell_spmv": 0}
+        batched(tx[None].repeat(2, 1))
+    assert spmv_cuda.launches == before == {"bell_spmv": 0, "ell_spmv": 0,
+                                            "bell_spmv_batched": 0}
 
 
 @pytest.mark.parametrize("bad", ["dtype", "nbr_dtype", "view_dtype", "n", "B",
@@ -125,7 +130,9 @@ def test_each_kernel_builds_from_its_own_source(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="(?s)ell_spmv.cu.*libell_spmv_"):
         spmv_cuda.build.__wrapped__("ell_spmv")
     assert set(spmv_cuda.KERNELS) == {"bell_spmv", "ell_spmv"}
-    assert spmv_cuda.launches.keys() == spmv_cuda.KERNELS.keys()
+    # the member-batched entry point lives in bell_spmv's library
+    assert {lib for lib, _ in spmv_cuda.BATCHED.values()} <= set(spmv_cuda.KERNELS)
+    assert spmv_cuda.launches.keys() == {*spmv_cuda.KERNELS, *spmv_cuda.BATCHED}
 
 
 def test_build_dir_checkout_or_user_cache(monkeypatch, tmp_path):

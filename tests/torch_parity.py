@@ -1,10 +1,21 @@
 """Helpers for the parity tests between shakti_tpu (JAX) and
 shakti_tpu_torch: frozen JAX dataclasses -> dicts of numpy arrays, the form
-shakti_tpu_torch.convert.problem_from_numpy reads."""
+shakti_tpu_torch.convert.problem_from_numpy reads.
+
+Every port test file imports this module, which pins torch's intra-op
+threads to the worker's share of the cores: under pytest-xdist each worker
+would otherwise start a pool of one thread per core, and six such pools on
+the same cores (beside XLA's) make the port's small-mesh tests several
+times slower than alone."""
 
 import dataclasses
+import os
 
 import numpy as np
+import torch
+
+_WORKERS = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // _WORKERS))
 
 
 def to_numpy(obj) -> dict:
