@@ -125,7 +125,27 @@ Phases (any failure raises: exit code != 0 and no result line):
      single launches and within phase 3's tolerances of the plain version,
      with its device time beside 8 single launches, the plain version, a
      block-diagonal torch sparse CSR mv of the 8 operators and its bytes
-     bound; ms per step and per member-step beside the members' own runs.
+     bound; ms per step and per member-step beside the members' own runs;
+ 18. cooke2: the reference's production experiment from its potential
+     field to its validation battery, through the port alone: (a)
+     scripts/make_cooke2_mesh.py's pipeline (the seeded 600 x 600
+     potential, mesh/basin.basin_outline, the catchment scaled to the
+     reference mesh's node count, polygon_mesh, write_msh, read back)
+     equal to assets/cooke2_synth (outline, lake and nodes bitwise, cells
+     as a set of triangles); (b) an npz lake inventory (save_inventory_npz)
+     and setup_cooke2 on that mesh for 10 days in float32 through
+     api/run.solve (240 steps, daily saves, log.csv): converged, finite,
+     block-ELL, bell_spmv launched and no plain matvec; (c) the battery of
+     scripts/cooke2_report.py through post (far-field ratio, lake level
+     equal to -(mean N - mean N_0)/(rho_w g) from the N history, filling
+     rate, mean gap, off-lake peak flux), finite, printed beside
+     COOKE2_RUN.md's 10-year TPU numbers for orientation only; the run's
+     last day again from its final state, timed and profiled as in phase
+     6 (busy share, launches and syncs per step, device time by op); (d) 96
+     hourly steps in float32 and float64 from the setup's state: relative
+     L2 of N and b < 2e-3 (tests/test_precision.py's guard); (e) bell_spmv
+     on the run's last operator within phase 3's tolerances of its plain
+     version, in float32 and float64.
 The line before the last is a JSON object with the kernels' numbers; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -931,19 +951,9 @@ def phase_bootstrap(dev, tmp):
     """Phase 11: setup_cooke2's reference cold start, 24 float64 bootstrap
     steps on the card then float32, 3 days."""
     from shakti_tpu_torch.api import run as trun
-    from shakti_tpu_torch.setups import setup_cooke2
-    env = {"SHAKTI_MESH_DIR": os.path.join(HERE, "assets", "cooke2_synth"),
-           "SHAKTI_REFERENCE_BINIT": "1"}
-    saved = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
-    try:
-        md = setup_cooke2.initialize(days=3, results_name=os.path.join(tmp, "ck2"))
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k)
-            else:
-                os.environ[k] = v
+    md = cooke2_setup({"SHAKTI_MESH_DIR": COOKE2_DIR,
+                       "SHAKTI_REFERENCE_BINIT": "1"},
+                      days=3, results_name=os.path.join(tmp, "ck2"))
     md.device = dev
     boot = {}
     real = trun._bootstrap_f64
@@ -1907,6 +1917,297 @@ def phase_ensemble(dev, md32=None, md64=None, steps=24, steps64=4, M=8,
     return res
 
 
+# ---- phase 18: Cook_E2 from the potential field to the validation battery
+# scripts/make_cooke2_mesh.py's target: the reference mesh's node count at
+# 2 km (BASELINE.md)
+COOKE2_NODES, COOKE2_RES = 12_268, 2000.0
+COOKE2_DIR = os.path.join(HERE, "assets", "cooke2_synth")
+# COOKE2_RUN.md: the JAX package's 10-year run on a TPU, printed beside
+# this 10-day run for orientation only (no gate)
+COOKE2_TPU_10Y = dict(far_field_ratio=0.8963, lake_level_final_m=3.348,
+                      filling_rate_m_per_yr=0.3936, mean_gap_final_mm=2.356,
+                      max_offlake_flux_final_m2s=0.01009)
+YEAR_S = 3.154e7
+
+
+def cooke2_potential(n=600, L=160e3, seed=7):
+    """scripts/make_cooke2_mesh.py:synthetic_potential: a two-outlet
+    potential with seeded ridge noise (ragged divides) and the lake."""
+    rng = np.random.default_rng(seed)
+    x = np.linspace(-L, L, n)
+    y = np.linspace(-L, L, n)
+    X, Y = np.meshgrid(x, y)
+    c1 = np.hypot(X + L, Y + 0.3 * L)
+    c2 = np.hypot(X - L, Y - 0.4 * L)
+    base = 0.004 * np.minimum(c1, 1.08 * c2)
+    ridges = np.zeros_like(X)
+    for _ in range(12):
+        kx, ky = rng.uniform(-4, 4, 2) * np.pi / L
+        ridges += rng.uniform(10, 30) * np.cos(kx * X + ky * Y
+                                               + rng.uniform(0, 2 * np.pi))
+    bowl = 60.0 * np.exp(-((X + 0.15 * L) / 14e3) ** 2
+                         - ((Y - 0.05 * L) / 10e3) ** 2)
+    phi = 917.0 * 9.81 * (1000.0 + base + ridges - bowl)
+    th = np.linspace(0, 2 * np.pi, 64, endpoint=False)
+    lake = np.column_stack([-0.15 * L + 9e3 * np.cos(th),
+                            0.05 * L + 7e3 * np.sin(th)])
+    return x, y, phi, lake
+
+
+def cooke2_mesh(out_dir):
+    """scripts/make_cooke2_mesh.py:main through the port: the potential ->
+    basin.basin_outline -> the catchment scaled to the reference mesh's
+    area and tuned to its node count -> polygon_mesh(jitter 0.28, seed 3)
+    -> write_msh; writes Cook_E2_mesh.msh, outline.npy and lake.npy into
+    ``out_dir`` and returns the host seconds of each stage."""
+    from shakti_tpu_torch.mesh import basin
+    from shakti_tpu_torch.mesh.generate import polygon_mesh
+    from shakti_tpu_torch.mesh.msh_io import write_msh
+    t0 = time.perf_counter()
+    x, y, phi, lake = cooke2_potential()
+    t1 = time.perf_counter()
+    outline = basin.basin_outline(x, y, phi, lake_outline=lake)
+    t2 = time.perf_counter()
+    area = 0.5 * abs(np.sum(outline[:, 0] * np.roll(outline[:, 1], -1)
+                            - np.roll(outline[:, 0], -1) * outline[:, 1]))
+    target_area = 24_101 * (np.sqrt(3) / 4) * COOKE2_RES ** 2
+    c = outline.mean(axis=0)
+    scale = np.sqrt(target_area / area)
+    for _ in range(8):
+        out_s = (outline - c) * scale + c
+        nodes, cells = polygon_mesh(out_s, COOKE2_RES, jitter=0.28, seed=3)
+        err = nodes.shape[0] / COOKE2_NODES
+        if abs(err - 1.0) < 0.01:
+            break
+        scale /= np.sqrt(err)
+    t3 = time.perf_counter()
+    os.makedirs(out_dir, exist_ok=True)
+    write_msh(os.path.join(out_dir, "Cook_E2_mesh.msh"), nodes, cells)
+    np.save(os.path.join(out_dir, "outline.npy"), out_s)
+    np.save(os.path.join(out_dir, "lake.npy"), (lake - c) * scale + c)
+    return dict(potential_s=t1 - t0, basin_outline_s=t2 - t1,
+                mesh_s=t3 - t2, write_s=time.perf_counter() - t3,
+                basin_vertices=int(outline.shape[0]), scale=float(scale))
+
+
+def bitwise_equal_np(a, b) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype and a.tobytes() == b.tobytes()
+
+
+def same_mesh(got_dir, ref_dir=COOKE2_DIR):
+    """outline.npy, lake.npy and the nodes bitwise equal; the cells equal
+    as a set of triangles (another qhull may order them otherwise)."""
+    from shakti_tpu_torch.mesh.msh_io import read_msh
+    same = {f: bitwise_equal_np(np.load(os.path.join(got_dir, f)),
+                                np.load(os.path.join(ref_dir, f)))
+            for f in ("outline.npy", "lake.npy")}
+    gn, gc = read_msh(os.path.join(got_dir, "Cook_E2_mesh.msh"))
+    rn, rc = read_msh(os.path.join(ref_dir, "Cook_E2_mesh.msh"))
+    same["nodes"] = bitwise_equal_np(gn, rn)
+
+    def triangles(c):
+        return np.unique(np.sort(c, axis=1), axis=0)
+    same["cells"] = (gc.shape == rc.shape
+                     and np.array_equal(triangles(gc), triangles(rc))
+                     and triangles(gc).shape[0] == gc.shape[0])
+    return same, gn.shape[0], gc.shape[0]
+
+
+def far_mask(md):
+    """scripts/cooke2_report.py:far_mask: off-lake, off-Dirichlet nodes more
+    than 25 km from the lake."""
+    lake = md.lake_bdry.astype(bool)
+    m = ~lake
+    m[md.dirichlet_nodes()] = False
+    cx, cy = md.x[lake].mean(), md.y[lake].mean()
+    m &= np.hypot(md.x - cx, md.y - cy) > 25e3
+    return m
+
+
+def cooke2_setup(env, **kw):
+    """The port's setup_cooke2.initialize(**kw) with the environment
+    variables ``env`` set for the call (and restored after)."""
+    from shakti_tpu_torch.setups import setup_cooke2
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        return setup_cooke2.initialize(**kw)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+
+
+def cooke2_battery(rdir, md):
+    """Phase 18 (c): the validation battery of scripts/cooke2_report.py
+    through the port's post, on the run's results directory."""
+    from shakti_tpu_torch import post
+    r = post.load_results(rdir)
+    lake = md.lake_bdry.astype(bool)
+    far = far_mask(md)
+    t, N, b = r["t"], r["N"], r["b"]
+    lvl = post.lake_level(N, lake, md.params)
+    # the level straight from the N history: -(mean N - mean N_0)/(rho_w g)
+    NL = N[:, lake]
+    direct = -(NL.mean(axis=1) - NL[0].mean()) / (md.params.rho_w * md.params.g)
+    out = dict(
+        rows=int(N.shape[0]), far_nodes=int(far.sum()),
+        lake_nodes=int(lake.sum()),
+        far_field_ratio=post.far_field_ratio(N, far, md.N_bdry),
+        far_field_mean_N_MPa=float(N[-1, far].mean()) / 1e6,
+        lake_mean_N_final_MPa=float(post.lake_mean(N, lake)[-1]) / 1e6,
+        lake_level_final_m=float(lvl[-1]),
+        filling_rate_m_per_yr=post.filling_rate(t, N, lake, md.params) * YEAR_S,
+        mean_gap_final_mm=float(post.mean_gap(b)[-1]) * 1e3,
+        max_offlake_flux_final_m2s=float(post.max_flux(
+            r["qx"], r["qy"], exclude_mask=lake)[-1]),
+        lake_level_direct_equal=bool(np.array_equal(lvl, direct)))
+    return out, r
+
+
+def cooke2_precision(dev, env, steps=96):
+    """Phase 18 (d): ``steps`` hourly steps in float32 and in float64 from
+    the setup's initial state on this mesh; relative L2 difference of N and
+    b (tests/test_precision.py's guard on the bench catchment)."""
+    from shakti_tpu_torch.solve import timestep as ts
+    fin = {}
+    for dtype in (torch.float32, torch.float64):
+        md = cooke2_setup(env, days=10, results_name=None)
+        md.device, md.dtype = dev, dtype
+        mesh, static, state, cfg = md.freeze()
+        step = ts.make_step_fn(mesh, static, md.params, cfg)
+        t0 = time.perf_counter()
+        s, d = ts.run_window(step, state, torch.full((steps,), 3600.0,
+                                                     dtype=dtype, device=dev))
+        wall = sync_s(dev, t0)
+        if not d["converged"].all():
+            raise RuntimeError(f"cooke2 {dtype} {steps} steps: not every step "
+                               f"converged ({d['converged']})")
+        fin[dtype] = (s, wall, int(d["newton_iters"].sum()),
+                      int(d["cg_iters"].sum()))
+    s32, s64 = fin[torch.float32][0], fin[torch.float64][0]
+    res = {k: float(torch.linalg.vector_norm(getattr(s32, k).double()
+                                             - getattr(s64, k))
+                    / torch.linalg.vector_norm(getattr(s64, k)))
+           for k in ("N", "b")}
+    for dtype, name in ((torch.float32, "f32"), (torch.float64, "f64")):
+        _, wall, nt, cg = fin[dtype]
+        res[name] = dict(ms_per_step=1e3 * wall / steps, newton=nt, cg=cg)
+    return res
+
+
+def phase_cooke2(dev, tmp):
+    """Phase 18: the reference's production experiment from its potential
+    field to its validation battery, through the port only: (a) the
+    catchment mesh regenerated (cooke2_mesh) and equal to
+    assets/cooke2_synth; (b) an npz lake inventory, then setup_cooke2 on
+    that mesh for 10 days in float32 through api/run.solve (240 steps,
+    daily saves, log.csv): every step converged, fields finite, every
+    matvec a bell_spmv launch; (c) the battery through post, and the
+    run's last day profiled from its final state; (d) float32
+    against float64 over 96 hourly steps; (e) bell_spmv against its plain
+    version on the run's last operator."""
+    from shakti_tpu_torch.data.lakes import save_inventory_npz
+    from shakti_tpu_torch.physics import residual
+    t_phase = time.perf_counter()
+    mesh_dir = os.path.join(tmp, "cooke2_mesh")
+    res = {"mesh": cooke2_mesh(mesh_dir)}
+    same, n, c = same_mesh(mesh_dir)
+    res["mesh"].update(nodes=n, cells=c, equal=same)
+    log("  (a) mesh from the potential field: " + json.dumps(res["mesh"]))
+    if not all(same.values()):
+        raise RuntimeError(f"regenerated Cook_E2 mesh differs from "
+                           f"assets/cooke2_synth: {same}")
+
+    inventory = os.path.join(tmp, "lakes.npz")
+    save_inventory_npz(inventory, {"Cook_E2": {
+        "outline": np.load(os.path.join(mesh_dir, "lake.npy")) / 1e3}})
+    env = {"SHAKTI_MESH_DIR": mesh_dir, "SHAKTI_LAKE_INVENTORY": inventory}
+    rdir = os.path.join(tmp, "cooke2_run")
+    md = cooke2_setup(env, days=10, results_name=rdir)
+    md.device = dev
+    last = {}
+    real_op = residual.operator_from_values
+
+    def op_spy(vals, mesh_, dirichlet, extra=None):
+        last.update(vals=vals, mesh=mesh_, dirichlet=dirichlet, extra=extra)
+        return real_op(vals, mesh_, dirichlet, extra)
+
+    residual.operator_from_values = op_spy
+    try:
+        with counted_plain() as plain:
+            out, launches = run_counted(md)
+    finally:
+        residual.operator_from_values = real_op
+    st = out["state"]
+    finite = all(bool(torch.isfinite(getattr(st, k)).all())
+                 for k in ("N", "b", "q", "melt"))
+    with open(os.path.join(rdir, "log.csv")) as f:
+        log_rows = len(f.read().splitlines()) - 1
+    steps = out["steps"]
+    run = dict(nodes=md.x.size, steps=steps, dtype=str(st.N.dtype),
+               operator="bell" if last["mesh"].bell_nbr is not None else "other",
+               ms_per_step=1e3 * out["wall_time"] / steps,
+               newton_mean=out["newton_iters_total"] / steps,
+               cg_mean=out["cg_iters_total"] / steps,
+               launches=launches, plain_calls=plain, log_rows=log_rows,
+               finite=finite, smi=nvidia_smi_line() if dev.type == "cuda"
+               else None)
+    res["run"] = run
+    log("  (b) setup_cooke2 10 days f32 through api/run.solve: "
+        + json.dumps(run))
+    # api/run.solve raises ConvergenceError at a step that did not converge
+    if not (steps == 240 and finite and run["operator"] == "bell"
+            and log_rows == 10
+            and (dev.type != "cuda" or (launches["bell_spmv"] > 0
+                                        and not any(plain.values())))):
+        raise RuntimeError(f"cooke2 run: {run}")
+
+    battery, hist = cooke2_battery(rdir, md)
+    res["battery"] = battery
+    log("  (c) battery (10 days, this run): " + json.dumps(battery))
+    log("      COOKE2_RUN.md (JAX package, 10 years on a TPU; orientation "
+        "only): " + json.dumps(COOKE2_TPU_10Y))
+    if not (battery["lake_level_direct_equal"] and all(
+            np.isfinite(v) for v in battery.values() if isinstance(v, float))
+            and all(np.isfinite(hist[k]).all() for k in hist)):
+        raise RuntimeError(f"cooke2 battery: {battery}")
+
+    if dev.type == "cuda":
+        # where a step of this run goes: its last day again, from its final
+        # state, timed and then under torch.profiler
+        from shakti_tpu_torch.solve.timestep import make_forcing, make_step_fn
+        mesh, static, _, cfg = md.freeze()
+        day = {k: v[-24:] for k, v in make_forcing(
+            md.timesteps, dtype=md.dtype, device=dev).items()}
+        res["profile"] = profile_steps(
+            dev, make_step_fn(mesh, static, md.params, cfg), st, day,
+            "bell_spmv")
+
+    prec = cooke2_precision(dev, env)
+    res["precision"] = prec
+    log("  (d) f32 vs f64, 96 hourly steps: " + json.dumps(prec))
+    if not (prec["N"] < 2e-3 and prec["b"] < 2e-3):
+        raise RuntimeError(f"cooke2 f32 against f64: {prec}")
+
+    if dev.type == "cuda":
+        x = torch.as_tensor(np.random.default_rng(5).standard_normal(
+            md.x.size), dtype=torch.float32, device=dev)
+        res["operator_max_abs_err"] = check_operator(
+            "cooke2 last operator (f32)", last["vals"], last["mesh"], x,
+            last["dirichlet"], last["extra"], 2e-6, 1e-6)
+        v64 = last["vals"].double()
+        e64 = None if last["extra"] is None else last["extra"].double()
+        res["operator_max_abs_err_f64"] = check_operator(
+            "cooke2 last operator (f64)", v64, last["mesh"], x.double(),
+            last["dirichlet"], e64, 1e-12, 1e-12)
+    res["wall_s"] = time.perf_counter() - t_phase
+    log(f"  phase 18: {res['wall_s']:.1f} s")
+    return res
+
+
 # the kernels line: "ms", "plain_ms" and "library_ms" are times per call
 # between CUDA events (host work included), as "ms" has been since the first
 # kernel; the *_device_ms are torch.profiler's device times
@@ -1921,7 +2222,7 @@ BATCHED_LINE_KEYS = ("M", "max_abs_err", "ms", "device_ms", "singles_ms",
 
 PHASES = ("kernel", "goldens", "main", "ell", "scale", "formats", "resume",
           "bootstrap", "bicgstab", "mg", "steady", "polish", "adjoint",
-          "ensemble")
+          "ensemble", "cooke2")
 
 
 def main(argv=None):
@@ -1965,7 +2266,7 @@ def main(argv=None):
         log(f"[{name}] (t = {time.perf_counter() - t_start:.1f} s)")
 
     kres = mres = sres = eres = gres = stres = pres = slab = None
-    ares = enres = None
+    ares = enres = cres = None
     # ---- 3. bell_spmv vs plain at the bench shapes ----
     from shakti_tpu_torch.setups import setup_bench
     if "kernel" in phases:
@@ -2081,6 +2382,11 @@ def main(argv=None):
     if "ensemble" in phases:
         stamp("ensemble: bench model, float32, M = 8, 24 steps")
         enres = phase_ensemble(dev)
+    # ---- 18. Cook_E2 from the potential field to the battery ----
+    if "cooke2" in phases:
+        stamp("cooke2: basin mesh, 10 days f32, battery, f32 vs f64")
+        with tempfile.TemporaryDirectory() as tmp:
+            cres = phase_cooke2(dev, tmp)
     stamp("done")
 
     if phases != list(PHASES):
@@ -2099,6 +2405,9 @@ def main(argv=None):
         "launches_steady": stres["launches"]["bell_spmv"],
         "launches_shmip_a1": pres["a1"]["launches"]["bell_spmv"],
         "launches_adjoint_backward": ares["launches_backward"]["bell_spmv"],
+        "launches_cooke2": cres["run"]["launches"]["bell_spmv"],
+        "max_abs_err_cooke2": {"float32": cres["operator_max_abs_err"],
+                               "float64": cres["operator_max_abs_err_f64"]},
         "W": kres["W"],
         **{k: f32[k] for k in LINE_KEYS}, "bound_by": f32["bound_by"],
         "float64": {k: kres["float64"][k] for k in LINE_KEYS}}, {

@@ -1,9 +1,10 @@
-"""Minimal gmsh `.msh` reader (pure Python, host-side).
+"""Minimal gmsh `.msh` reader/writer (pure Python, host-side).
 
-The port's copy of shakti_tpu/mesh/msh_io.py:read_msh and its readers (the
-writer is not needed here).  Supports MSH 4.1 and legacy 2.2, ASCII and
-binary.  Extracts 2-D triangle meshes: returns (nodes (n, 2) float64,
-cells (c, 3) int32) with nodes renumbered densely in file order.
+The port's copy of shakti_tpu/mesh/msh_io.py: ``read_msh`` and its readers
+support MSH 4.1 and legacy 2.2, ASCII and binary, and extract 2-D triangle
+meshes: (nodes (n, 2) float64, cells (c, 3) int32) with nodes renumbered
+densely in file order.  ``write_msh`` writes MSH 4.1, ASCII or binary,
+byte for byte as the JAX package's writer does.
 """
 
 from __future__ import annotations
@@ -253,3 +254,49 @@ def _read_elements_v2(lines):
         if etype == 2:
             tris.append(tuple(parts[3 + ntags: 6 + ntags]))
     return tris
+
+
+def write_msh(path: str, nodes: np.ndarray, cells: np.ndarray,
+              binary: bool = False):
+    """Write a minimal MSH 4.1 file (single entity block), ASCII or binary
+    (little-endian, the gmsh `Mesh.Binary=1` layout).  Mainly for tests and
+    for exporting generated meshes to gmsh-compatible tools."""
+    nodes = np.asarray(nodes, dtype=np.float64)
+    cells = np.asarray(cells, dtype=np.int64)
+    n, c = nodes.shape[0], cells.shape[0]
+    if binary:
+        with open(path, "wb") as f:
+            f.write(b"$MeshFormat\n4.1 1 8\n")
+            f.write(struct.pack("<i", 1))
+            f.write(b"\n$EndMeshFormat\n$Nodes\n")
+            f.write(np.asarray([1, n, 1, n], dtype="<u8").tobytes())
+            f.write(np.asarray([2, 1, 0], dtype="<i4").tobytes())
+            f.write(np.asarray([n], dtype="<u8").tobytes())
+            f.write((np.arange(n, dtype="<u8") + 1).tobytes())
+            xyz = np.zeros((n, 3))
+            xyz[:, :2] = nodes[:, :2]
+            f.write(xyz.astype("<f8").tobytes())
+            f.write(b"\n$EndNodes\n$Elements\n")
+            f.write(np.asarray([1, c, 1, c], dtype="<u8").tobytes())
+            f.write(np.asarray([2, 1, 2], dtype="<i4").tobytes())
+            f.write(np.asarray([c], dtype="<u8").tobytes())
+            rec = np.empty((c, 4), dtype="<u8")
+            rec[:, 0] = np.arange(c) + 1
+            rec[:, 1:] = cells + 1
+            f.write(rec.tobytes())
+            f.write(b"\n$EndElements\n")
+        return
+    with open(path, "w") as f:
+        f.write("$MeshFormat\n4.1 0 8\n$EndMeshFormat\n")
+        f.write(f"$Nodes\n1 {n} 1 {n}\n")
+        f.write(f"2 1 0 {n}\n")
+        for k in range(n):
+            f.write(f"{k + 1}\n")
+        for k in range(n):
+            f.write(f"{nodes[k, 0]:.17g} {nodes[k, 1]:.17g} 0\n")
+        f.write("$EndNodes\n")
+        f.write(f"$Elements\n1 {c} 1 {c}\n")
+        f.write(f"2 1 2 {c}\n")
+        for k in range(c):
+            f.write(f"{k + 1} {cells[k, 0] + 1} {cells[k, 1] + 1} {cells[k, 2] + 1}\n")
+        f.write("$EndElements\n")

@@ -2,24 +2,31 @@
 rebuilt on shakti_tpu_torch's ModelSetup.
 
 The reference's production case: the lake-catchment mesh, the lake mask
-from its outline, bed, surface and geothermal flux interpolated onto the
-nodes, the outflow boundary at the minimum of the background hydraulic
-potential, 10 years at 24 steps a day with daily saves and a checkpoint
-every 50 days.
+from its outline, bed (BedMachine), surface (ICESat-2 ATL14) and
+geothermal flux (AQ1) interpolated onto the nodes, the outflow boundary at
+the minimum of the background hydraulic potential, 10 years at 24 steps a
+day with daily saves and a checkpoint every 50 days.
 
 Environment:
 
   SHAKTI_MESH_DIR          directory with Cook_E2_mesh.msh (and lake.npy,
                            the outline in mesh coordinates); else a
                            synthetic 50 x 50 catchment
+  SHAKTI_LAKE_INVENTORY    lake outlines, .h5 (Siegfried & Fricker; needs
+                           h5py) or .npz; else lake.npy beside the mesh,
+                           else an ellipse at the mesh's centre
+  SHAKTI_BEDMACHINE, SHAKTI_ATL14, SHAKTI_AQ1
+                           the netCDF grids (data/netcdf.py: netCDF4, else
+                           h5py); a variable left unset or naming no file
+                           takes the synthetic field of the JAX setup
   SHAKTI_REFERENCE_BINIT   "1": the reference's exact cold start
                            b = 0.001 + N(0, 0.005), unclamped, with
                            SHAKTI_BOOTSTRAP_STEPS (default 24) float64
                            bootstrap steps (api/run._bootstrap_f64)
-  SHAKTI_BEDMACHINE, SHAKTI_ATL14, SHAKTI_AQ1, SHAKTI_LAKE_INVENTORY
-                           the netCDF/HDF5 datasets: their readers are not
-                           ported yet, so a path to an existing file raises
-                           (unset: the synthetic fields of the JAX setup)
+
+Unlike the JAX setup, a grid variable that names an existing file on a
+machine with neither netCDF4 nor h5py raises ImportError instead of
+falling back to the synthetic fields.
 """
 
 import os
@@ -27,12 +34,15 @@ import os
 import numpy as np
 
 from shakti_tpu_torch.api.model import ModelSetup
+from shakti_tpu_torch.data import netcdf
+from shakti_tpu_torch.data.lakes import load_inventory, outline_m
 from shakti_tpu_torch.mesh.generate import rectangle_mesh
 from shakti_tpu_torch.mesh.msh_io import read_msh
 from shakti_tpu_torch.params import DEFAULT_PARAMS as P
 
-DATASETS = ("SHAKTI_BEDMACHINE", "SHAKTI_ATL14", "SHAKTI_AQ1",
-            "SHAKTI_LAKE_INVENTORY")
+GRIDS = (("SHAKTI_BEDMACHINE", netcdf.read_bedmachine),
+         ("SHAKTI_ATL14", netcdf.read_atl14),
+         ("SHAKTI_AQ1", netcdf.read_aq1))
 
 
 def _synthetic_grids(bounds, lake_xy):
@@ -50,14 +60,26 @@ def _synthetic_grids(bounds, lake_xy):
     return (gx, gy, bed), (gx, gy, surf), (gx, gy, ghf)
 
 
-def initialize(days=10 * 365, nt_per_day=24, results_name="auto", seed=0):
-    for env in DATASETS:
+def _grids(synthetic):
+    """(bed, surf, ghf) grids: each from the file its variable names, else
+    the synthetic one.  A file that no netCDF backend can read raises."""
+    out = []
+    for (env, reader), fallback in zip(GRIDS, synthetic):
         path = os.environ.get(env)
-        if path and os.path.exists(path):
-            raise NotImplementedError(
-                f"{env}={path}: the netCDF/HDF5 dataset readers (data/netcdf.py,"
-                " data/lakes.py) are not ported yet (ROADMAP, still to port: "
-                "the geo-data readers); unset it for the synthetic fields")
+        if not (path and os.path.exists(path)):
+            out.append(fallback)
+            continue
+        try:
+            out.append(reader(path))
+        except ImportError as e:
+            raise ImportError(
+                f"{env}={path}: reading it needs netCDF4 or h5py, and neither "
+                "imports; install one, or unset the variable for the "
+                "synthetic field") from e
+    return out
+
+
+def initialize(days=10 * 365, nt_per_day=24, results_name="auto", seed=0):
     lake_name = "Cook_E2"
     mesh_dir = os.environ.get("SHAKTI_MESH_DIR")
     msh_path = os.path.join(mesh_dir, f"{lake_name}_mesh.msh") if mesh_dir else None
@@ -76,7 +98,12 @@ def initialize(days=10 * 365, nt_per_day=24, results_name="auto", seed=0):
     md.results_name = results_name
 
     outline = None
-    if msh_path and os.path.exists(msh_path):
+    inv_path = os.environ.get("SHAKTI_LAKE_INVENTORY")
+    if inv_path and os.path.exists(inv_path):
+        inv = load_inventory(inv_path)
+        if lake_name in inv:
+            outline = outline_m(inv, lake_name)
+    if outline is None and msh_path and os.path.exists(msh_path):
         lk = os.path.join(os.path.dirname(msh_path), "lake.npy")
         if os.path.exists(lk):
             outline = np.load(lk)
@@ -96,7 +123,7 @@ def initialize(days=10 * 365, nt_per_day=24, results_name="auto", seed=0):
               outline[np.isfinite(outline[:, 1]), 1].mean())
 
     mesh_bounds = (md.x.min(), md.x.max(), md.y.min(), md.y.max())
-    bed_g, surf_g, ghf_g = _synthetic_grids(mesh_bounds, lake_c)
+    bed_g, surf_g, ghf_g = _grids(_synthetic_grids(mesh_bounds, lake_c))
     bed_interp = md.interp_data("z_b", *bed_g)
     surf_interp = md.interp_data("z_s", *surf_g)
     md.interp_data("G", *ghf_g)

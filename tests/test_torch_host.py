@@ -1,7 +1,8 @@
 """The port's copies of shakti_tpu's numpy host modules against the originals,
-on the slab 12x12, lake 16x16 and Cook_E2 bench meshes: mesh generation and
-.msh reading, RCB ordering, boundary and Dirichlet location, the lake's
-point-in-polygon mask, gridded interpolation and the quadrature tables.
+on the slab 12x12, lake 16x16 and Cook_E2 bench meshes: mesh generation,
+.msh reading and writing, RCB ordering, boundary and Dirichlet location,
+the lake's point-in-polygon mask, gridded interpolation and the quadrature
+tables.
 The originals may take their native library's path here; the copies keep
 the numpy path only, so integer results must be equal and interpolated
 values agree to roundoff (1e-14 of scale)."""
@@ -65,15 +66,26 @@ def test_read_msh_bench():
 @pytest.mark.parametrize("name", ["slab", "lake"])
 @pytest.mark.parametrize("binary", [False, True])
 def test_read_msh_written(name, binary, tmp_path):
-    """MSH 4.1 files written by shakti_tpu's writer, ASCII and binary."""
+    """MSH 4.1 files written by the port's writer, ASCII and binary."""
     nodes, cells = _mesh(name)
     path = str(tmp_path / f"{name}.msh")
-    jmsh.write_msh(path, nodes, cells, binary=binary)
+    tmsh.write_msh(path, nodes, cells, binary=binary)
     tn, tc = tmsh.read_msh(path)
     jn, jc = jmsh.read_msh(path)
     np.testing.assert_array_equal(tn, jn)
     np.testing.assert_array_equal(tc, jc)
     np.testing.assert_array_equal(tc, cells)
+
+
+@pytest.mark.parametrize("name", MESHES)
+@pytest.mark.parametrize("binary", [False, True])
+def test_write_msh_byte_equal(name, binary, tmp_path):
+    """Both packages' writers give the same bytes, ASCII and binary."""
+    nodes, cells = _mesh(name)
+    tp, jp = tmp_path / "t.msh", tmp_path / "j.msh"
+    tmsh.write_msh(str(tp), nodes, cells, binary=binary)
+    jmsh.write_msh(str(jp), nodes, cells, binary=binary)
+    assert tp.read_bytes() == jp.read_bytes()
 
 
 @pytest.mark.parametrize("name", MESHES)

@@ -2,8 +2,11 @@
 shakti_tpu_torch/, chip_smoke.py and the golden cases it loads, and
 torch_ab.py, read with ``ast``; and a fresh
 interpreter that imports every module of the package and runs a small
-model's freeze and one operator matvec ends with neither package loaded and
-no native host library mapped."""
+model's freeze and one operator matvec ends with neither package loaded,
+none of the optional libraries that only some functions need (h5py,
+netCDF4, PIL, matplotlib, pyproj: the machine with the card has none of
+them) and no native host library mapped.  The package's top-level names
+resolve to the port's objects, as shakti_tpu's resolve to its own."""
 
 import ast
 import os
@@ -65,6 +68,14 @@ from shakti_tpu_torch.setups import setup_lake
 from shakti_tpu_torch.physics.residual import operator_from_values
 from shakti_tpu_torch.parallel import ensemble
 from shakti_tpu_torch.solve import implicit
+from shakti_tpu_torch import post
+from shakti_tpu_torch.data import geotiff, lakes, netcdf
+from shakti_tpu_torch.mesh import basin, msh_io
+from shakti_tpu_torch.setups import setup_cooke2
+for fn in (post.load_results, post.render_frames, geotiff.read_geotiff,
+           lakes.load_inventory_hdf5, netcdf.read_grid, basin.basin_mesh,
+           msh_io.write_msh, setup_cooke2.initialize):
+    assert callable(fn)
 for name in ("stack_states", "perturbed_ensemble", "make_ensemble_step_fn",
              "make_ensemble_runner"):
     assert callable(getattr(ensemble, name)), name
@@ -78,7 +89,10 @@ y = operator_from_values(vals, mesh, static.dirichlet)(state.N)
 assert torch.equal(y, torch.where(static.dirichlet, state.N, 0.0))
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib",
                                                            "shakti_tpu"))
+optional = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "h5py", "netCDF4", "PIL", "matplotlib", "pyproj"))
 maps = open("/proc/self/maps").read() if sys.platform == "linux" else ""
+print("OPTIONAL", optional)
 print("BAD", bad, "NATIVE", "libshakti_native" in maps)
 """
 
@@ -88,4 +102,48 @@ def test_fresh_interpreter_loads_no_jax_nor_shakti_tpu():
     r = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
-    assert r.stdout.strip().splitlines()[-1] == "BAD [] NATIVE False", r.stdout
+    lines = r.stdout.strip().splitlines()
+    assert lines[-1] == "BAD [] NATIVE False", r.stdout
+    assert lines[-2] == "OPTIONAL []", r.stdout
+
+
+_API = """
+import importlib, sys
+import {pkg} as pkg
+got = {{}}
+for name in ("solve", "ModelSetup", "solve_steady", "NewtonConfig",
+             "rectangle_mesh", "polygon_mesh", "read_msh", "post"):
+    obj = getattr(pkg, name)
+    got[name] = (obj.__name__ if hasattr(obj, "__file__")
+                 else obj.__module__ + "." + obj.__name__)
+print(got)
+"""
+
+
+@pytest.mark.parametrize("pkg", ["shakti_tpu_torch", "shakti_tpu"])
+def test_top_level_names(pkg):
+    """shakti_tpu's lazy top-level names, in each package, resolve to that
+    package's objects.  ``solve`` is asked first: once anything has loaded
+    the subpackage of the same name, the attribute is that subpackage, in
+    both packages alike."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    r = subprocess.run([sys.executable, "-c", _API.format(pkg=pkg)], cwd=ROOT,
+                       env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    got = ast.literal_eval(r.stdout.strip().splitlines()[-1])
+    assert got == {
+        "solve": f"{pkg}.api.run.solve",
+        "ModelSetup": f"{pkg}.api.model.ModelSetup",
+        "solve_steady": f"{pkg}.api.steady.solve_steady",
+        "NewtonConfig": f"{pkg}.solve.newton.NewtonConfig",
+        "rectangle_mesh": f"{pkg}.mesh.generate.rectangle_mesh",
+        "polygon_mesh": f"{pkg}.mesh.generate.polygon_mesh",
+        "read_msh": f"{pkg}.mesh.msh_io.read_msh",
+        "post": f"{pkg}.post"}
+    if pkg == "shakti_tpu_torch":
+        import shakti_tpu_torch
+        from shakti_tpu_torch.api.model import ModelSetup
+        assert shakti_tpu_torch.ModelSetup is ModelSetup
+        assert shakti_tpu_torch.DEFAULT_PARAMS.g == 9.81
+        with pytest.raises(AttributeError, match="no attribute"):
+            shakti_tpu_torch.no_such_name
