@@ -146,6 +146,35 @@ Phases (any failure raises: exit code != 0 and no result line):
      L2 of N and b < 2e-3 (tests/test_precision.py's guard); (e) bell_spmv
      on the run's last operator within phase 3's tolerances of its plain
      version, in float32 and float64.
+ 19. dist: the distributed path (parallel/dist.py, halo.py, shard.py,
+     utils/multihost.py; api/run.py and api/steady.py with md.distributed)
+     on gloo ranks that this script spawns (chip_smoke.py --dist-rank),
+     time-sliced on the one card, one world at a time, each rank with a
+     wall-clock limit and a clock on its collectives (their count, time
+     and share of the rank's wall time): (a) the
+     bench model in float64 for 4 steps on 4 ranks, the global two-level in
+     per-rank block-ELL and mg in per-rank block-CSR: N and b in user order
+     within 1e-7 of scale of phase 9's bell run (phase 13 (a) holds its mg
+     runs against the same), Newton counts equal to single-device runs with
+     the ranks' settings (no operator carry), CG beside; per rank the
+     kernel's launches (none through a plain version), L, omax and peak
+     memory; bell_spmv and ell_spmv against their plain versions on rank
+     0's last operator (ghost rows, dead slots); (b) the bench model in
+     float32 through api/run.solve on 4 ranks for 48 steps: the save rows
+     after the first within 1e-4 of scale of a single-device run with the
+     ranks' settings (two-level aggregates of 16, no operator carry); the
+     first row, after the cold start's dt/10 step, no farther from a
+     float64 run with those settings than twice the single-device f32 run
+     (every f32 run is ~25 % of scale from it there); the errors against
+     phase 5's run printed; only rank 0 holding the rows, and a run of 25
+     steps resumed to 48 equal to it; (c) the 8 x 8 toy of
+     __graft_entry__.dryrun_multichip on 8 ranks, one step cell-sharded,
+     halo, and halo with block-ELL and mg: Newton equal to
+     MULTICHIP_r05.json's, CG beside; (d) the 16 x 16 slab in float64
+     through solve_steady on 2 ranks: verdict steady in phase 14's PTC
+     steps, N within 1e-8 of scale of its; (e) the bench model for 4
+     float64 steps on a world of one rank under NCCL on cuda:0 and under
+     gloo: bitwise equal.  Every rank's counts and residual norms equal.
 The line before the last is a JSON object with the kernels' numbers; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -2208,6 +2237,543 @@ def phase_cooke2(dev, tmp):
     return res
 
 
+# ---- phase 19: the distributed path on torch.distributed ----
+# MULTICHIP_r05.json: __graft_entry__.dryrun_multichip(8) on 8 virtual CPU
+# devices of the JAX package (float32): Newton and CG of one hourly step of
+# the 8 x 8 toy, cell-sharded, halo, halo with block-ELL and mg
+DRYRUN_8 = {"cell": (6, 159), "halo": (6, 148), "halo_bell_mg": (6, 48)}
+# per-rank wall-clock limit of a world (the process group's own timeout makes
+# a rank that waits on a dead peer fail first)
+RANK_TIMEOUT_S = 420
+# the halo's transport: gloo (and NCCL) take the CUDA tensors themselves for
+# every collective the port uses, so nothing is staged through the host
+TRANSPORT = "device"
+
+
+class collective_clock:
+    """The host time this rank spends inside torch.distributed's collectives
+    (all_reduce, all_gather, all_to_all_single: the ones the port calls),
+    and their count.  The card is synchronized before each, so the rank's
+    queued work counts as compute; what remains is the transfer and the wait
+    for the other ranks."""
+
+    NAMES = ("all_reduce", "all_gather", "all_to_all_single")
+
+    def __init__(self, dev):
+        self.dev, self.s, self.n = dev, 0.0, 0
+
+    def __enter__(self):
+        import torch.distributed as dist
+        self.real = {k: getattr(dist, k) for k in self.NAMES}
+
+        def timed(fn):
+            def call(*a, **k):
+                torch.cuda.synchronize(self.dev)
+                t0 = time.perf_counter()
+                out = fn(*a, **k)
+                self.s += time.perf_counter() - t0
+                self.n += 1
+                return out
+            return call
+        for k, fn in self.real.items():
+            setattr(dist, k, timed(fn))
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        for k, fn in self.real.items():
+            setattr(dist, k, fn)
+
+    def read(self, wall):
+        return dict(collectives=self.n, collective_s=self.s, wall_s=wall,
+                    collective_share=self.s / wall)
+
+
+def _free_port() -> int:
+    import socket
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _spawn_world(task, world, tmp):
+    """Start ``world`` ranks of chip_smoke.py --dist-rank <task> (gloo,
+    file:// init), each writing its results under <tmp>/<task>/."""
+    out = os.path.join(tmp, task)
+    os.makedirs(out, exist_ok=True)
+    init = os.path.join(out, "init")
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(HERE, "chip_smoke.py"), "--dist-rank",
+         task, str(r), str(world), init, out], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    return task, world, out, procs, time.perf_counter()
+
+
+def _finish_world(handle):
+    """Wait for a world; raise (with the rank's output) if any rank failed
+    or outlived RANK_TIMEOUT_S.  Returns (per-rank results, wall s)."""
+    task, world, out, procs, t0 = handle
+    logs = []
+    for p in procs:
+        try:
+            logs.append(p.communicate(
+                timeout=max(RANK_TIMEOUT_S - (time.perf_counter() - t0), 1))[0])
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            raise RuntimeError(f"dist {task}: a rank outlived "
+                               f"{RANK_TIMEOUT_S} s")
+    wall = time.perf_counter() - t0
+    for r, (p, lg) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise RuntimeError(f"dist {task}: rank {r} exited {p.returncode}"
+                               f":\n{lg[-6000:]}")
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    return ranks, wall
+
+
+class last_operator:
+    """Records the arguments of the last call of ops/spmv_cuda's operator
+    builder ``name`` (the per-rank operator of a distributed Newton
+    iteration), to hold the kernel against its plain version on it."""
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        from shakti_tpu_torch.ops import spmv_cuda
+        self.mod, self.real, self.args = spmv_cuda, getattr(spmv_cuda,
+                                                            self.name), None
+
+        def spy(*a, **k):
+            self.args = a
+            return self.real(*a, **k)
+        setattr(spmv_cuda, self.name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.real)
+
+
+def _rank_run(md, dev, rank, out, tag, kernel):
+    """One distributed run of ``md`` (4 steps) on this rank: counts,
+    launches (none through a plain version), L/omax, peak memory, time;
+    rank 0 saves N and b in user order and holds ``kernel`` against its
+    plain version on its last operator."""
+    from shakti_tpu_torch.ops import spmv_cuda
+    from shakti_tpu_torch.parallel import dist as pdist
+    from shakti_tpu_torch.solve.timestep import timestep_sizes
+    md.distributed = True
+    torch.cuda.reset_peak_memory_stats(dev)
+    runner, st0, plan = pdist.make_distributed_runner(md, device=dev)
+    dts = timestep_sizes(md.timesteps, dtype=md.dtype, device=dev)
+    builder = "bell_operator_fn" if kernel == "bell_spmv" else "ell_operator_fn"
+    spmv_cuda.reset_launches()
+    with counted_plain() as plain, last_operator(builder) as last, \
+            collective_clock(dev) as clock:
+        t0 = time.perf_counter()
+        s, d = runner(st0, dts)
+        wall = sync_s(dev, t0)
+    launches = dict(spmv_cuda.launches)
+    g = pdist.gather_state(plan, s)
+    mesh = plan["mesh"]
+    r = dict(newton=d["newton_iters"].tolist(), cg=d["cg_iters"].tolist(),
+             rnorm=[float(v) for v in d["rnorm"]],
+             converged=bool(d["converged"].all()), L=plan["L"],
+             omax=plan["omax"], format=plan["format"],
+             precond=plan["cfg"].precond, launches=launches,
+             plain_calls=dict(plain), ms_per_step=1e3 * wall / len(dts),
+             peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+             profile=clock.read(wall))
+    if rank == 0:
+        np.save(os.path.join(out, f"{tag}_N.npy"), md.to_user_order(g.N))
+        np.save(os.path.join(out, f"{tag}_b.npy"), md.to_user_order(g.b))
+        vals, lmesh, dirichlet = last.args[:3]
+        rng = np.random.default_rng(19)
+        x = torch.as_tensor(rng.standard_normal(lmesh.n_nodes), device=dev,
+                            dtype=vals.dtype)
+        extra = torch.as_tensor(rng.random(lmesh.n_nodes)
+                                * ~dirichlet.cpu().numpy(), device=dev,
+                                dtype=vals.dtype)
+        _, rtol, atol = next(t for t in TOLS if t[0] == vals.dtype)
+        r["kernel_check"] = {
+            "rows": lmesh.n_nodes, "rows_without_entries": int(
+                ((lmesh.bell_nz_pos if kernel == "bell_spmv"
+                  else lmesh.nz_pos) >= 0).sum(0).eq(0).sum()),
+            **{part: check_operator(
+                f"dist rank 0 {tag} {kernel} {part}", vals, lmesh, x,
+                dirichlet if part == "epilogue" else None,
+                extra if part == "epilogue" else None, rtol, atol, kernel)
+               for part in ("product", "epilogue")}}
+    return r
+
+
+def _dist_bench(dev, rank, world, out):
+    """(a) the bench model, float64, 4 steps: the global two-level in
+    block-ELL, then mg in block-CSR; (b) 48 float32 steps through
+    api/run.solve into <out>/run, then 25 steps and --resume to 48."""
+    from shakti_tpu_torch.ops import spmv_cuda
+    from shakti_tpu_torch.setups import setup_bench
+    # a coarse cap above the mesh: no hierarchy, so the ranks keep the
+    # global two-level (with a hierarchy that has levels they take mg)
+    res = {"two_level": _rank_run(bench_f64(dev, mg_coarse_cap=1 << 15), dev,
+                                  rank, out, "two_level", "bell_spmv"),
+           "mg": _rank_run(bench_f64(dev, "bcsr", precond="mg"), dev, rank,
+                           out, "mg", "ell_spmv")}
+
+    def bench32(name, steps=None):
+        md = setup_bench.initialize(days=2,
+                                    results_name=os.path.join(out, name))
+        md.device, md.distributed = dev, True
+        if steps:
+            md.timesteps = md.timesteps[:steps]
+        return md
+
+    spmv_cuda.reset_launches()
+    with counted_plain() as plain, collective_clock(dev) as clock:
+        t0 = time.perf_counter()
+        o = bench32("run").solve(progress=False)
+        wall = sync_s(dev, t0)
+    res["run"] = dict(steps=o["steps"], newton=o["newton_iters_total"],
+                      cg=o["cg_iters_total"], launches=dict(spmv_cuda.launches),
+                      plain_calls=dict(plain), ms_per_step=1e3 * wall / 48,
+                      profile=clock.read(wall),
+                      history_none=o["history"] is None,
+                      finite=bool(torch.isfinite(o["state"].N).all()))
+    bench32("resume", 25).solve(progress=False)
+    o = bench32("resume").solve(resume=True, progress=False)
+    res["resume"] = dict(steps=o["steps"])
+    return res
+
+
+def _dist_toy(dev, rank, world, out):
+    """(c) __graft_entry__.dryrun_multichip's 8 x 8 toy, one hourly step:
+    cell-sharded, halo, halo with block-ELL and mg."""
+    import dataclasses
+
+    from shakti_tpu_torch.ops import spmv_cuda
+    from shakti_tpu_torch.parallel import dist as pdist
+    from shakti_tpu_torch.parallel.shard import make_parallel_step_fn
+    from shakti_tpu_torch.setups import setup_slab
+    from shakti_tpu_torch.solve.newton import NewtonConfig
+
+    def build():
+        md = setup_slab.initialize(nx=8, ny=8, days=2.0, nt_per_day=4)
+        md.solver = NewtonConfig(adaptive_dt_levels=0, lag_operator=False)
+        md.device = dev
+        return md
+
+    def counts(d, state, launches):
+        return dict(newton=int(np.sum(d["newton_iters"])),
+                    cg=int(np.sum(d["cg_iters"])),
+                    converged=bool(np.all(d["converged"])),
+                    finite=bool(torch.isfinite(state.N).all()),
+                    launches=launches)
+
+    res = {}
+    md = build()
+    mesh, static, state, cfg = md.freeze()
+    step = make_parallel_step_fn(mesh, static, md.params, cfg)
+    s, d = step(state, torch.tensor(3600.0, dtype=md.dtype, device=dev))
+    res["cell"] = counts(d, s, {})
+    for tag, op, solver in (("halo", "auto", {}),
+                            ("halo_bell_mg", "bell",
+                             dict(precond="mg", mg_agg=4, mg_coarse_cap=16))):
+        md = build()
+        md.operator = op
+        md.solver = dataclasses.replace(md.solver, **solver)
+        md.distributed = True
+        runner, st0, plan = pdist.make_distributed_runner(md, device=dev)
+        spmv_cuda.reset_launches()
+        s, d = runner(st0, torch.full((1,), 3600.0, dtype=md.dtype,
+                                      device=dev))
+        res[tag] = counts(d, s, dict(spmv_cuda.launches))
+        res[tag].update(format=plan["format"], precond=plan["cfg"].precond,
+                        L=plan["L"])
+    return res
+
+
+def _dist_steady(dev, rank, world, out):
+    """(d) the 16 x 16 slab in float64 through solve_steady on the ranks
+    (make_distributed_steady_runner)."""
+    from shakti_tpu_torch.ops import spmv_cuda
+    from shakti_tpu_torch.setups import setup_slab
+    md = setup_slab.initialize(nx=16, ny=16)
+    md.device, md.dtype, md.distributed = dev, torch.float64, True
+    spmv_cuda.reset_launches()
+    with collective_clock(dev) as clock:
+        t0 = time.perf_counter()
+        o = md.solve_steady(tol=2e-2)
+        wall = sync_s(dev, t0)
+    if rank == 0:
+        np.save(os.path.join(out, "N.npy"), o["N"])
+        np.save(os.path.join(out, "b.npy"), o["b"])
+    info = o["info"]
+    return dict(verdict=info["verdict"], steps=info["steps"],
+                newton=info["newton_total"], cg=info["cg_total"],
+                rate=info["rate"], wall_s=wall, profile=clock.read(wall),
+                launches=dict(spmv_cuda.launches))
+
+
+DIST_TASKS = {"bench": _dist_bench, "toy": _dist_toy, "steady": _dist_steady}
+
+
+def dist_rank(task, rank, world, init, out):
+    """One rank of phase 19 (chip_smoke.py --dist-rank ...): joins the gloo
+    world on the card, runs ``task`` and writes <out>/rank<r>.json."""
+    import datetime
+
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    from shakti_tpu_torch.utils.backend import resolve_device
+    dev = resolve_device("cuda:0")
+    torch.cuda.set_device(dev)
+    torch.zeros(1, device=dev)      # the context, before the memory stats
+    dist.init_process_group("gloo", init_method=f"file://{init}", rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    res = DIST_TASKS[task](dev, rank, world, out)
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _world_size_1(dev):
+    """(e) the bench model for 4 float64 steps on a world of one rank, under
+    NCCL on cuda:0 and under gloo: the same code, bitwise the same result."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from shakti_tpu_torch.ops import spmv_cuda
+    from shakti_tpu_torch.parallel import dist as pdist
+    from shakti_tpu_torch.solve.timestep import timestep_sizes
+    res, st = {}, {}
+    for backend in ("nccl", "gloo"):
+        kw = {"device_id": dev} if backend == "nccl" else {}
+        dist.init_process_group(backend, f"tcp://localhost:{_free_port()}",
+                                rank=0, world_size=1,
+                                timeout=datetime.timedelta(seconds=120), **kw)
+        try:
+            md = bench_f64(dev)
+            md.distributed = True
+            runner, st0, plan = pdist.make_distributed_runner(md, device=dev)
+            spmv_cuda.reset_launches()
+            s, d = runner(st0, timestep_sizes(md.timesteps, dtype=md.dtype,
+                                              device=dev))
+            st[backend] = pdist.gather_state(plan, s)
+            res[backend] = dict(newton=int(d["newton_iters"].sum()),
+                                cg=int(d["cg_iters"].sum()),
+                                launches=dict(spmv_cuda.launches))
+        finally:
+            dist.destroy_process_group()
+    res["bitwise_equal"] = {k: bitwise_equal(getattr(st["nccl"], k),
+                                             getattr(st["gloo"], k))
+                            for k in ("N", "b", "q", "melt")}
+    return res
+
+
+def _rel(a, b):
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+# (b)'s row 0: the ranks' f32 distance from float64 over the single-device
+# f32 run's, at most (read 1.02 / 1.14 / 1.08 / 1.46 for N / b / qx / qy
+# on an H100; both runs 0.25 of scale from float64 in N)
+ROW0_F64_FACTOR = 2.0
+
+
+def phase_dist(dev, tmp, ref=None, mg13=None, main_dir=None, slab=None):
+    """Phase 19: the distributed path (parallel/dist.py, halo.py, shard.py,
+    api/run.py and api/steady.py on torch.distributed), gloo ranks
+    time-sliced on the one card: (a) and (b) on 4 ranks, (c) on 8, (d) on
+    2, (e) in this process.  ``ref``: phase 9's bell two-level N and b in
+    user order (phase 13 (a) holds its mg runs against the same);
+    ``mg13``: phase 13 (a)'s block-CSR mg counts, printed beside; ``main_dir``
+    phase 5's results; ``slab`` phase 14's (md, state, PTC steps).  Newton
+    counts are held against single-device runs with the ranks' settings
+    (no operator carry), made here.  The worlds run one after another, each
+    alone on the card, after the single-device references."""
+    import dataclasses
+
+    from shakti_tpu_torch.api.steady import solve_steady
+    from shakti_tpu_torch.setups import setup_bench, setup_slab
+    t_phase = time.perf_counter()
+    res = {"card": nvidia_smi_line()}
+    # the single-device references the ranks are held against
+    single = {}
+    for tag, md in (("two_level", bench_f64(dev, lag_operator=False)),
+                    ("mg", bench_f64(dev, "bcsr", precond="mg"))):
+        out, _ = run_counted(md)
+        single[tag] = dict(newton=out["newton_iters_total"],
+                           cg=out["cg_iters_total"],
+                           N=md.to_user_order(out["state"].N),
+                           b=md.to_user_order(out["state"].b))
+    # (b)'s reference: 48 f32 steps single-device with the ranks' solver
+    # settings (the global aggregates of 16 nodes as the two-level's, no
+    # operator carry)
+    md = setup_bench.initialize(days=2)
+    md.device = dev
+    md.solver = dataclasses.replace(md.solver, coarse_block=16,
+                                    lag_operator=False)
+    out = md.solve(progress=False)
+    single32 = dict(newton=out["newton_iters_total"], cg=out["cg_iters_total"],
+                    **out["history"])
+    # the same settings in float64 for 25 steps: both of (b)'s save rows
+    md = setup_bench.initialize(days=2)
+    md.device, md.dtype = dev, torch.float64
+    md.timesteps = md.timesteps[:25]
+    md.solver = dataclasses.replace(md.solver, coarse_block=16,
+                                    lag_operator=False)
+    single64 = md.solve(progress=False)["history"]
+    if slab is None:
+        md = setup_slab.initialize(nx=16, ny=16)
+        md.device, md.dtype = dev, torch.float64
+        o = solve_steady(md, tol=2e-2)
+        slab_N, slab_steps = o["N"], o["info"]["steps"]
+    else:
+        slab_N, slab_steps = slab[0].to_user_order(slab[1].N), slab[2]
+    # one world at a time: each rank's times are those of its own world
+    bench, res["bench_wall_s"] = _finish_world(_spawn_world("bench", 4, tmp))
+    toy, res["toy_wall_s"] = _finish_world(_spawn_world("toy", 8, tmp))
+    steady, res["steady_wall_s"] = _finish_world(_spawn_world("steady", 2,
+                                                              tmp))
+    log("  worlds' wall s (one at a time): " + json.dumps(
+        {k: res[f"{k}_wall_s"] for k in ("bench", "toy", "steady")}))
+
+    # ---- (a) the bench model, f64, 4 ranks ----
+    out4 = os.path.join(tmp, "bench")
+    for tag in ("two_level", "mg"):
+        ranks = [r[tag] for r in bench]
+        for r in ranks[1:]:
+            for k in ("newton", "cg", "rnorm"):
+                if r[k] != ranks[0][k]:
+                    raise RuntimeError(f"(a) {tag}: the ranks' {k} differ")
+        r0, sg = ranks[0], single[tag]
+        kern = "bell_spmv" if tag == "two_level" else "ell_spmv"
+        a = dict(newton=sum(r0["newton"]), cg=sum(r0["cg"]),
+                 single_newton=sg["newton"], single_cg=sg["cg"],
+                 precond=r0["precond"], format=r0["format"],
+                 transport=TRANSPORT, ms_per_step=r0["ms_per_step"],
+                 per_rank=[dict(rank=i, launches=r["launches"][kern],
+                                plain_calls=sum(r["plain_calls"].values()),
+                                L=r["L"], omax=r["omax"],
+                                peak_gb=r["peak_gb"], profile=r["profile"])
+                           for i, r in enumerate(ranks)],
+                 kernel_check=r0["kernel_check"])
+        if tag == "mg" and mg13 is not None:
+            a["phase13_newton"], a["phase13_cg"] = mg13["newton"], mg13["cg"]
+        for k in ("N", "b"):
+            got = np.load(os.path.join(out4, f"{tag}_{k}.npy"))
+            a[f"err_{k}_single"] = _rel(got, sg[k])
+            if ref is not None:
+                a[f"err_{k}_phase9"] = _rel(got, ref[k])
+        log(f"  (a) bench f64 {tag}: " + json.dumps(a))
+        errs = [v for k, v in a.items() if k.startswith("err_")]
+        if (not r0["converged"] or max(errs) > 1e-7
+                or a["newton"] != sg["newton"]
+                or min(p["launches"] for p in a["per_rank"]) <= 0
+                or max(p["plain_calls"] for p in a["per_rank"]) > 0):
+            raise RuntimeError(f"(a) bench {tag} on 4 ranks: {a}")
+        res[f"a_{tag}"] = a
+
+    # ---- (b) api/run.solve, f32, 48 steps, and a resume at 25 ----
+    b = dict(bench[0]["run"], resume_steps=bench[0]["resume"]["steps"],
+             history_none=[r["run"]["history_none"] for r in bench],
+             launches_per_rank=[r["run"]["launches"]["bell_spmv"]
+                                for r in bench],
+             single_newton=single32["newton"], single_cg=single32["cg"],
+             profile_per_rank=[r["run"]["profile"] for r in bench])
+    for k in ("N", "b", "qx", "qy"):
+        got = np.load(os.path.join(out4, "run", f"{k}.npy"))
+        rows = range(got.shape[0])
+        b[f"err_{k}_single_rows"] = [_rel(got[i], single32[k][i])
+                                     for i in rows]
+        # every f32 run's distance per row from the float64 run with the
+        # ranks' settings: the spread f32 itself leaves
+        f32 = {"dist": got, "single": single32[k]}
+        if main_dir is not None:
+            f32["phase5"] = np.load(os.path.join(main_dir, f"{k}.npy"))
+            b[f"err_{k}_phase5_rows"] = [_rel(got[i], f32["phase5"][i])
+                                         for i in rows]
+            b[f"err_{k}_single_vs_phase5_rows"] = [
+                _rel(single32[k][i], f32["phase5"][i]) for i in rows]
+        b[f"err_{k}_f64_rows"] = {
+            tag: [_rel(h[i], single64[k][i]) for i in rows]
+            for tag, h in f32.items()}
+        b[f"resume_equal_{k}"] = bool(np.array_equal(got, np.load(
+            os.path.join(out4, "resume", f"{k}.npy"))))
+    ca = np.load(os.path.join(out4, "run", "checkpoint.npz"))
+    cb = np.load(os.path.join(out4, "resume", "checkpoint.npz"))
+    b["resume_equal_state"] = all(np.array_equal(ca[k], cb[k])
+                                  for k in ("N", "b", "q", "melt"))
+    # the rows after the first against the single-device f32 run; row 0
+    # (after the cold start's dt/10 step) leaves every f32 run ~25 % of
+    # scale (N) from float64, each in its own direction: there the ranks
+    # must be no farther from float64 than ROW0_F64_FACTOR times the
+    # single-device f32 run is
+    errs = [v for k in ("N", "b", "qx", "qy")
+            for v in b[f"err_{k}_single_rows"][1:]]
+    row0 = {k: b[f"err_{k}_f64_rows"]["dist"][0]
+            / b[f"err_{k}_f64_rows"]["single"][0]
+            for k in ("N", "b", "qx", "qy")}
+    b["row0_f64_ratio"] = row0
+    log("  (b) bench f32 through api/run.solve on 4 ranks: " + json.dumps(b))
+    if (b["steps"] != 48 or not b["finite"] or b["resume_steps"] != 23
+            or b["history_none"] != [False, True, True, True]
+            or not all(v for k, v in b.items() if k.startswith("resume_eq"))
+            or max(errs) > 1e-4 or max(row0.values()) > ROW0_F64_FACTOR
+            or min(b["launches_per_rank"]) <= 0
+            or sum(b["plain_calls"].values()) > 0):
+        raise RuntimeError(f"(b) api/run.solve on 4 ranks: {b}")
+    res["b_run"] = b
+
+    # ---- (c) the 8 x 8 toy on 8 ranks ----
+    c = {}
+    for tag, (newton, cg) in DRYRUN_8.items():
+        rs = [r[tag] for r in toy]
+        if any((r["newton"], r["cg"]) != (rs[0]["newton"], rs[0]["cg"])
+               for r in rs):
+            raise RuntimeError(f"(c) {tag}: the ranks' counts differ")
+        c[tag] = dict(rs[0], multichip_r05=dict(newton=newton, cg=cg))
+        if (not rs[0]["converged"] or not rs[0]["finite"]
+                or rs[0]["newton"] != newton):
+            raise RuntimeError(f"(c) {tag}: {c[tag]}")
+    if min(r["halo_bell_mg"]["launches"]["bell_spmv"] for r in toy) <= 0:
+        raise RuntimeError("(c) halo_bell_mg: a rank never launched bell_spmv")
+    log("  (c) 8 x 8 toy on 8 ranks (CG reported, not gated): "
+        + json.dumps(c))
+    res["c_toy"] = c
+
+    # ---- (d) the 16 x 16 slab steady state on 2 ranks ----
+    d = dict(steady[0], single_steps=slab_steps)
+    d["err_N"] = _rel(np.load(os.path.join(tmp, "steady", "N.npy")), slab_N)
+    log("  (d) slab 16 x 16 steady on 2 ranks: " + json.dumps(d))
+    if (steady[1]["steps"] != d["steps"] or d["verdict"] != "steady"
+            or d["steps"] != slab_steps or d["err_N"] > 1e-8):
+        raise RuntimeError(f"(d) steady on 2 ranks: {d}")
+    res["d_steady"] = d
+
+    # ---- (e) world size 1: NCCL against gloo ----
+    e = _world_size_1(dev)
+    log("  (e) world size 1, NCCL vs gloo: " + json.dumps(e))
+    if not all(e["bitwise_equal"].values()):
+        raise RuntimeError(f"(e) NCCL and gloo differ at world size 1: {e}")
+    res["e_world1"] = e
+    res["wall_s"] = time.perf_counter() - t_phase
+    log(f"  phase 19: {res['wall_s']:.1f} s (P ranks time-sliced on one "
+        f"{res['card']})")
+    return res
+
+
 # the kernels line: "ms", "plain_ms" and "library_ms" are times per call
 # between CUDA events (host work included), as "ms" has been since the first
 # kernel; the *_device_ms are torch.profiler's device times
@@ -2221,11 +2787,16 @@ BATCHED_LINE_KEYS = ("M", "max_abs_err", "ms", "device_ms", "singles_ms",
 
 
 PHASES = ("kernel", "goldens", "main", "ell", "scale", "formats", "resume",
-          "bootstrap", "bicgstab", "mg", "steady", "polish", "adjoint",
+          "bootstrap", "bicgstab", "mg", "steady", "polish", "dist", "adjoint",
           "ensemble", "cooke2")
 
 
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--dist-rank"]:
+        # a rank of phase 19, started by phase_dist
+        task, rank, world, init, out = argv[1:6]
+        return dist_rank(task, int(rank), int(world), init, out)
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES)
@@ -2266,7 +2837,7 @@ def main(argv=None):
         log(f"[{name}] (t = {time.perf_counter() - t_start:.1f} s)")
 
     kres = mres = sres = eres = gres = stres = pres = slab = None
-    ares = enres = cres = None
+    ares = enres = cres = dres = fres = ref = main_dir = None
     # ---- 3. bell_spmv vs plain at the bench shapes ----
     from shakti_tpu_torch.setups import setup_bench
     if "kernel" in phases:
@@ -2375,6 +2946,17 @@ def main(argv=None):
             stamp("polish: slab polish; SHMIP A1 60 x 12 steady with polish")
             pres = phase_polish(dev, tmp, slab)
 
+        # ---- 19. the distributed path ----
+        if "dist" in phases:
+            stamp("dist: 4 ranks bench f64/f32, 8 ranks toy, 2 ranks steady,"
+                  " world size 1 NCCL vs gloo")
+            dres = phase_dist(
+                dev, tmp, ref=ref, main_dir=main_dir,
+                mg13=None if gres is None or "bench" not in gres
+                else gres["bench"]["bcsr"],
+                slab=None if slab is None
+                else (slab[0], slab[1], stres["steps"]))
+
     # ---- 16. the differentiable transient; 17. the batched ensemble ----
     if "adjoint" in phases:
         stamp("adjoint: bench model, float64, 6 steps, gradients vs FD")
@@ -2408,6 +2990,10 @@ def main(argv=None):
         "launches_cooke2": cres["run"]["launches"]["bell_spmv"],
         "max_abs_err_cooke2": {"float32": cres["operator_max_abs_err"],
                                "float64": cres["operator_max_abs_err_f64"]},
+        "launches_dist": sum(p["launches"] for p in
+                             dres["a_two_level"]["per_rank"])
+        + sum(dres["b_run"]["launches_per_rank"]),
+        "max_abs_err_dist": dres["a_two_level"]["kernel_check"],
         "W": kres["W"],
         **{k: f32[k] for k in LINE_KEYS}, "bound_by": f32["bound_by"],
         "float64": {k: kres["float64"][k] for k in LINE_KEYS}}, {
@@ -2425,6 +3011,8 @@ def main(argv=None):
                     "bcsr_matvec and shakti_tpu/fem/ell.py:91 ell_matvec "
                     "run in XLA",
         "launches": sres["launches"], "launches_mg_1M": gres["1M"]["launches"],
+        "launches_dist": sum(p["launches"] for p in dres["a_mg"]["per_rank"]),
+        "max_abs_err_dist": dres["a_mg"]["kernel_check"],
         "launches_mg_bench": {op: gres["bench"][op]["launches"]["ell_spmv"]
                               for op in ("ell", "bcsr")},
         "W": large["float32"]["W"],

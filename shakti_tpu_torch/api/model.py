@@ -94,6 +94,9 @@ class ModelSetup:
         self.operator = "auto"
         self.operator_block = None
         self.node_iperm = None
+        # run on the ranks of the torch.distributed world, node-sharded
+        # (parallel/dist.py; the CLI's --dist)
+        self.distributed = False
 
     # ------------------------------------------------------------------ setup
     def get_buffer(self) -> float:
@@ -161,7 +164,7 @@ class ModelSetup:
                 raise ValueError(f"md.{name} has {np.shape(a)[0]} entries for "
                                  f"{self.nodes.shape[0]} nodes")
 
-    def freeze(self, device=None):
+    def freeze(self, device=None, distributed=None):
         """Build the immutable device problem (mesh, static_fields,
         initial_state, newton_config) on ``device`` (default self.device).
 
@@ -171,8 +174,13 @@ class ModelSetup:
         is set to the solver-order -> user-order permutation (None
         otherwise).  Under 'mg' the mesh carries its hierarchy (solve/mg.py,
         None at or below mg_coarse_cap nodes) and the operator carry is
-        off."""
+        off.  ``distributed`` (default self.distributed): the layout of the
+        node-sharded path, whose ranks build their own operators and
+        hierarchy (parallel/dist.py): RCB order, no operator structure
+        ('cells'), no hierarchy."""
         dev = resolve_device(self.device if device is None else device)
+        if distributed is None:
+            distributed = self.distributed
         self.validate(require_timesteps=False)
         n = self.nodes.shape[0]
         op = self.operator
@@ -182,10 +190,13 @@ class ModelSetup:
             raise ValueError(f"md.operator must be 'auto' or one of "
                              f"{OPERATORS}, got {op!r}")
         check_config(self.solver)
+        reorder = op in ("bell", "bcsr") or self.solver.precond == "mg"
+        if distributed:
+            op, reorder = "cells", True
 
         nodes, cells, perm = self.nodes, self.cells, None
         self.node_iperm = None
-        if op in ("bell", "bcsr") or self.solver.precond == "mg":
+        if reorder:
             perm = rcb_order(self.nodes)
             iperm = np.argsort(perm)
             nodes = self.nodes[perm]
@@ -203,17 +214,19 @@ class ModelSetup:
             while n // blk > 1536:
                 blk *= 2
             cfg = dataclasses.replace(cfg, coarse_block=blk)
-        if cfg.lag_operator is None or cfg.precond == "mg":
+        if cfg.lag_operator is None or cfg.precond == "mg" or distributed:
             # auto: carry the operator in the block-ELL regime only; never
-            # under mg (the carry holds a two-level coarse inverse)
+            # under mg (the carry holds a two-level coarse inverse) nor on
+            # the distributed path (no global operator to carry)
             cfg = dataclasses.replace(
                 cfg, lag_operator=op == "bell" and cfg.precond != "mg")
         blk = self.operator_block
         if blk is None:
             blk = (32 if n <= 6_000_000 else 16) if op == "bcsr" else 128
-        mesh = attach_hierarchy(
-            build_mesh(nodes, cells, dtype=self.dtype, device=dev,
-                       operator=op, bell_block=blk), cfg)
+        mesh = build_mesh(nodes, cells, dtype=self.dtype, device=dev,
+                          operator=op, bell_block=blk)
+        if not distributed:
+            mesh = attach_hierarchy(mesh, cfg)
         dnodes = geo.locate_boundary_nodes(nodes, cells, self.OutflowBoundary) \
             if (self.outflow_on and self.OutflowBoundary is not None) \
             else np.zeros(0, dtype=np.int64)

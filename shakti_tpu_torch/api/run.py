@@ -1,5 +1,4 @@
-"""Transient run loop + results IO: the port of shakti_tpu/api/run.py
-(single device).
+"""Transient run loop + results IO: the port of shakti_tpu/api/run.py.
 
 Reproduces the reference's run protocol (reference solvers.py:57-238):
 the results directory must not pre-exist unless resuming; t.npy,
@@ -18,6 +17,16 @@ package's dispatch-ahead (host bookkeeping of one group while the device
 runs the next) has no counterpart here: the host drives every step
 (ROADMAP K8).  ``md.bootstrap_steps`` marches the first steps in float64 on
 the run's own device (:func:`_bootstrap_f64`).
+
+Distributed runs: with ``md.distributed`` and a torch.distributed world of
+more than one rank (utils/multihost.py, the CLI's --dist), every rank runs
+its node-sharded share (parallel/dist.py) through the same protocol.  All
+file IO goes through rank 0; every rank reaches every collective (a
+group's save rows are its ranks' owned rows, gathered once per group; a
+checkpoint gathers the state).  Rank 0's verdict on a pre-existing results
+directory is broadcast, so every rank aborts.  A resume reads the global
+checkpoint on every rank (a shared filesystem) and localizes it; the f64
+bootstrap runs single-device only, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -32,8 +41,12 @@ import numpy as np
 import torch
 
 from shakti_tpu_torch.io import checkpoint as ckpt
-from shakti_tpu_torch.solve.timestep import make_forcing, make_step_fn, run_window
+from shakti_tpu_torch.parallel import dist as pdist
+from shakti_tpu_torch.parallel.halo import localize_rank
+from shakti_tpu_torch.solve.timestep import (State, make_forcing, make_step_fn,
+                                             run_window)
 from shakti_tpu_torch.utils.backend import resolve_device
+from shakti_tpu_torch.utils.multihost import broadcast_flag, to_host, world
 
 KEYS = ("N", "b", "qx", "qy")
 
@@ -151,6 +164,9 @@ def solve(md, *, resume: bool = False, progress: bool = True):
     results directory when ``md.results_name`` is set."""
     md.validate()
     dev = resolve_device(md.device)
+    n_ranks, rank = world()
+    dist_on = bool(md.distributed) and n_ranks > 1
+    primary = rank == 0
     timesteps = np.asarray(md.timesteps, dtype=np.float64)
     nt = timesteps.size
     nt_save = int(md.nt_save) if md.nt_save else 1
@@ -162,29 +178,43 @@ def solve(md, *, resume: bool = False, progress: bool = True):
     io_on = md.results_name is not None
     rdir = str(md.results_name) if io_on else None
     start_step, row, loaded = 0, 0, None
-    mesh, static, state0, cfg = md.freeze(dev)
+    if dist_on:
+        _, state0, plan = pdist.make_distributed_runner(md, device=dev)
+        mesh, cfg, step_fn = None, plan["cfg"], plan["step"]
+        omax = plan["group"]["omax"]
+    else:
+        mesh, static, state0, cfg = md.freeze(dev)
+        step_fn = make_step_fn(mesh, static, md.params, cfg)
     if io_on:
         mesh_fp = ckpt.mesh_fingerprint(md.nodes)
         if resume:
             loaded = ckpt.load_state(rdir, dtype=md.dtype, device=dev,
-                                     fingerprint=mesh_fp, mesh=mesh)
+                                     fingerprint=mesh_fp, mesh=mesh,
+                                     include_lag=not dist_on)
         if loaded is not None:
             _, start_step, row = loaded
         else:
-            try:
-                os.makedirs(rdir, exist_ok=False)
-            except FileExistsError:
+            ok = True
+            if primary:
+                try:
+                    os.makedirs(rdir, exist_ok=False)
+                except FileExistsError:
+                    ok = False
+            if dist_on:
+                ok = broadcast_flag(ok)
+            if not ok:
                 raise FileExistsError(
                     f"Error: Directory '{rdir}' already exists.\n"
                     "Choose another name in setup file or delete this "
-                    "directory.") from None
-        np.save(os.path.join(rdir, "t.npy"),
-                np.linspace(0, timesteps.max(), n_saves))
-        np.save(os.path.join(rdir, "nodes_x.npy"), md.x)
-        np.save(os.path.join(rdir, "nodes_y.npy"), md.y)
-        if md.setup_file and os.path.exists(str(md.setup_file)):
-            shutil.copy(str(md.setup_file),
-                        os.path.join(rdir, os.path.basename(str(md.setup_file))))
+                    "directory.")
+        if primary:
+            np.save(os.path.join(rdir, "t.npy"),
+                    np.linspace(0, timesteps.max(), n_saves))
+            np.save(os.path.join(rdir, "nodes_x.npy"), md.x)
+            np.save(os.path.join(rdir, "nodes_y.npy"), md.y)
+            if md.setup_file and os.path.exists(str(md.setup_file)):
+                shutil.copy(str(md.setup_file), os.path.join(
+                    rdir, os.path.basename(str(md.setup_file))))
 
     def open_hist(k):
         """A memmap-backed history: reopened in place on resume, or
@@ -205,23 +235,27 @@ def solve(md, *, resume: bool = False, progress: bool = True):
         return np.lib.format.open_memmap(f, mode="w+", dtype=hist_dt,
                                          shape=(n_saves, n_nodes))
 
-    if io_on:
-        hist = {k: open_hist(k) for k in KEYS}
-    else:
+    if not io_on:
         hist = {k: np.zeros((n_saves, n_nodes), dtype=hist_dt) for k in KEYS}
+    else:
+        # only rank 0 writes: the other ranks hold no history at all
+        hist = {k: open_hist(k) for k in KEYS} if primary else None
     log_rows = []
-    if io_on and start_step > 0 and os.path.exists(os.path.join(rdir, "log.csv")):
+    if (io_on and primary and start_step > 0
+            and os.path.exists(os.path.join(rdir, "log.csv"))):
         # keep the pre-resume diagnostics (log.csv is rewritten whole)
         with open(os.path.join(rdir, "log.csv")) as f:
             log_rows = [tuple(ln.strip().split(",")) for ln in f.readlines()[1:]
                         if ln.strip() and int(ln.split(",")[0]) < start_step]
 
     def write_histories():
-        if io_on:
+        if io_on and hist is not None:
             for k in KEYS:
                 hist[k].flush()
 
     def write_log():
+        if not primary:
+            return
         with open(os.path.join(rdir, "log.csv"), "w") as f:
             f.write("step,t,newton_mean,newton_max,cg_mean,rnorm_max,N_min\n")
             for r in log_rows:
@@ -229,6 +263,15 @@ def solve(md, *, resume: bool = False, progress: bool = True):
 
     if loaded is None:
         state = state0
+    elif dist_on:
+        # the global checkpoint (solver order) -> this rank's share
+        def loc(t):
+            return torch.as_tensor(localize_rank(plan, t.cpu().numpy(), rank),
+                                   device=dev)
+
+        g = loaded[0]
+        state = State(N=loc(g.N), b=loc(g.b), q=loc(g.q), melt=loc(g.melt),
+                      N_prev=loc(g.N_prev))
     else:
         state = loaded[0]
         if cfg.lag_operator:
@@ -248,11 +291,31 @@ def solve(md, *, resume: bool = False, progress: bool = True):
     forcing = make_forcing(timesteps, dtype=md.dtype, device=dev,
                            seasonal=md.seasonal_inputs,
                            degree_day=md.degree_day)
-    step_fn = make_step_fn(mesh, static, md.params, cfg)
 
-    # a group's save rows wait on the device: cap them at ~32 MB
+    if dist_on:
+        def extract(st):
+            return pdist.gather_state(plan, st)
+
+        def pack(st):
+            return pdist.pack_owned(st, omax)
+
+        def pull(rows):
+            return pdist.stitch_rows(plan, to_host(torch.stack(rows)).reshape(
+                (n_ranks, len(rows), -1)))
+    else:
+        def extract(st):
+            return st
+
+        pack = _pack
+
+        def pull(rows):
+            return torch.stack(rows).cpu().numpy()
+
+    # a group's save rows wait on the device (per rank: its owned rows):
+    # cap them at ~32 MB
     itemsize = hist_dt.itemsize
-    max_group = max(1, min(64, int(32e6 / (itemsize * (4 * n_nodes
+    row_nodes = omax if dist_on else n_nodes
+    max_group = max(1, min(64, int(32e6 / (itemsize * (4 * row_nodes
                                                        + 4 * nt_save)))))
     if os.environ.get("SHAKTI_RUN_GROUP"):      # A/B and test override
         max_group = max(1, int(os.environ["SHAKTI_RUN_GROUP"]))
@@ -279,8 +342,9 @@ def solve(md, *, resume: bool = False, progress: bool = True):
         if flat is None:
             return last
         vals = [flat[k * n_nodes:(k + 1) * n_nodes] for k in range(4)]
-        for k, v in zip(KEYS, vals):
-            hist[k][row] = v[unp]
+        if hist is not None:
+            for k, v in zip(KEYS, vals):
+                hist[k][row] = v[unp]
         log_rows.append((last, float(timesteps[last]), float(ni.mean()),
                          int(ni.max()), float(ci.mean()), float(rn.max()),
                          float(vals[0].min())))
@@ -288,15 +352,18 @@ def solve(md, *, resume: bool = False, progress: bool = True):
         if io_on and ck_state is not None and _ck_due(i0, last, nt_check):
             write_histories()
             write_log()
-            ckpt.save_state(rdir, ck_state, last + 1, row,
-                            fingerprint=mesh_fp, include_lag=False)
+            gs = extract(ck_state)          # every rank: a collective
+            if primary:
+                ckpt.save_state(rdir, gs, last + 1, row,
+                                fingerprint=mesh_fp, include_lag=False)
         return last
 
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.time()
     boot_steps = int(md.bootstrap_steps or 0)
-    if boot_steps > 0 and start_step == 0 and md.dtype != torch.float64:
+    if (boot_steps > 0 and start_step == 0 and md.dtype != torch.float64
+            and not dist_on):
         s64, bwins, boot_end = _bootstrap_f64(md, timesteps, nt_save, boot_steps)
 
         def cast(t):
@@ -329,12 +396,12 @@ def solve(md, *, resume: bool = False, progress: bool = True):
                                    _window_forcing(forcing, i0, wlen))
             dgs.append(_diag_rows(dg))
             if do_save:
-                rows.append(_pack(state))
+                rows.append(pack(state))
             if not dg["converged"].all():
                 break                   # consume below raises at this window
         pulled = None
         if rows:
-            pulled = torch.stack(rows).cpu().numpy()           # one pull
+            pulled = pull(rows)                                 # one pull
             host_pulls += 1
         j = 0
         for (i0, wlen, do_save), dg in zip(grp, dgs):
@@ -342,7 +409,7 @@ def solve(md, *, resume: bool = False, progress: bool = True):
             if do_save:
                 flat, j = pulled[j], j + 1
             last = consume(i0, wlen, flat, dg, state)
-        if progress:
+        if progress and primary:
             print(f"Time step {last + 1} of {nt} completed "
                   f"({(last + 1) / nt * 100:.1f}%)", end="\r", flush=True)
     if dev.type == "cuda":
@@ -350,7 +417,8 @@ def solve(md, *, resume: bool = False, progress: bool = True):
     wall = time.time() - t0
 
     steps_run = nt - start_step
-    if io_on:
+    state = extract(state)
+    if io_on and primary:
         write_histories()
         write_log()
         ckpt.save_state(rdir, state, nt, row, fingerprint=mesh_fp, mesh=mesh)

@@ -1,6 +1,6 @@
 """User-level steady-state entry point: ``solve_steady(md)``.
 
-Port of shakti_tpu/api/steady.py (single device).  Freezes the model,
+Port of shakti_tpu/api/steady.py.  Freezes the model,
 marches the pseudo-transient continuation (solve/steady.py) to the
 requested drift tolerance and returns the steady state in the caller's node
 order with its mass budget::
@@ -11,8 +11,11 @@ order with its mass budget::
 
 The transient path is untouched (the semi-implicit gap update exists only
 here).  ``polish=True`` hands the march's state to the monolithic coupled
-Newton (solve/monolithic.py); the distributed path waits for the
-distributed port (ROADMAP).
+Newton (solve/monolithic.py).  With ``md.distributed`` and a
+torch.distributed world of more than one rank the march (and the cycle
+certificate) runs node-sharded on every rank (parallel/dist.py) and the
+state is gathered on every rank; the polish and the segmented checkpoint
+stay single-device, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -25,11 +28,13 @@ import numpy as np
 import torch
 
 from shakti_tpu_torch.io.checkpoint import mesh_fingerprint
+from shakti_tpu_torch.parallel import dist as pdist
 from shakti_tpu_torch.solve import diagnostics as diag
 from shakti_tpu_torch.solve.steady import (STATE_KEYS, YEAR, cycle_certify,
                                            make_steady_step, steady_carry_init,
                                            steady_info_from_carry, steady_solve)
 from shakti_tpu_torch.solve.monolithic import steady_polish
+from shakti_tpu_torch.utils.multihost import world
 
 PTC_FILE = "ptc.npz"
 POLISH_FILE = "polish.npz"
@@ -155,25 +160,35 @@ def solve_steady(md, *, tol=1e-2, t_ref=YEAR, dt0=None, dt_max=1e9,
               max_steps=max_steps, max_rel_change=max_rel_change,
               stab_safety=stab_safety)
 
-    mesh, static, state0, cfg = md.freeze()
-    state0 = dataclasses.replace(state0, lag_op=None)
-    step, cfg = make_steady_step(mesh, static, md.params, cfg)
-    # Dirichlet nodes are excluded from the drift certificate (no reachable
-    # gap equilibrium where N is pinned near zero); their gap drift is
-    # reported as rate_b_bdry
-    mask = ~static.dirichlet
-    t0 = time.time()
-    if checkpoint:
-        state, dinfo = _ptc_segmented(md, step, state0, mask, checkpoint,
-                                      segment_steps, kw)
+    dist_on = bool(md.distributed) and world()[0] > 1
+    if dist_on:
+        runner, state0, plan = pdist.make_distributed_steady_runner(
+            md, cycle_window=cycle_window, **kw)
+        t0 = time.time()
+        state_l, dinfo = runner(state0)
+        state = pdist.gather_state(plan, state_l)
+        # the budget and the outputs on the gathered state, single-device
+        mesh, static, _, cfg = md.freeze()
     else:
-        state, dinfo = steady_solve(step, state0, params=md.params,
-                                    drift_mask=mask, **kw)
+        mesh, static, state0, cfg = md.freeze()
+        state0 = dataclasses.replace(state0, lag_op=None)
+        step, cfg = make_steady_step(mesh, static, md.params, cfg)
+        # Dirichlet nodes are excluded from the drift certificate (no
+        # reachable gap equilibrium where N is pinned near zero); their gap
+        # drift is reported as rate_b_bdry
+        mask = ~static.dirichlet
+        t0 = time.time()
+        if checkpoint:
+            state, dinfo = _ptc_segmented(md, step, state0, mask, checkpoint,
+                                          segment_steps, kw)
+        else:
+            state, dinfo = steady_solve(step, state0, params=md.params,
+                                        drift_mask=mask, **kw)
     info = {k: _host(v) for k, v in dinfo.items()}
     info["converged"] = bool(dinfo["converged"])
 
     polished = stationary = False
-    if polish:
+    if polish and not dist_on:
         p_state, pinfo = steady_polish(
             mesh, static, md.params, state, tol=tol, t_ref=t_ref,
             armijo_cuts=13, max_newton_total=polish_max_newton,
@@ -203,10 +218,14 @@ def solve_steady(md, *, tol=1e-2, t_ref=YEAR, dt0=None, dt_max=1e9,
 
     certified_cycle = False
     if not info["converged"] and not stationary and cycle_window:
-        mean_state, cinfo = cycle_certify(
-            step, state, params=md.params, dt=dinfo["dt"], tol=tol,
-            t_ref=t_ref, window=cycle_window, max_rel_change=max_rel_change,
-            drift_mask=mask)
+        if dist_on:
+            mean_l, cinfo = plan["cycle_run"](state_l, dinfo["dt"])
+            mean_state = pdist.gather_state(plan, mean_l)
+        else:
+            mean_state, cinfo = cycle_certify(
+                step, state, params=md.params, dt=dinfo["dt"], tol=tol,
+                t_ref=t_ref, window=cycle_window,
+                max_rel_change=max_rel_change, drift_mask=mask)
         certified_cycle = bool(cinfo["certified"])
         info["cycle_rate"] = float(cinfo["cycle_rate"])
         info["cycle_amp_N"] = float(cinfo["amp_N"])

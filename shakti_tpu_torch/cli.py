@@ -3,6 +3,8 @@
     python -m shakti_tpu_torch <setup> [--device cuda|cpu] [--resume] [--quiet]
     python -m shakti_tpu_torch <setup> --steady [--steady-tol TOL] [--polish]
                                        [--cycle-window K] [--device ...]
+    torchrun --nproc-per-node P -m shakti_tpu_torch <setup> --dist
+                                       [--backend nccl|gloo] [--device ...]
 
 Imports the named setup module, calls its ``initialize()`` to get a
 ModelSetup of this package, and runs ``md.solve()`` on the chosen device,
@@ -13,6 +15,12 @@ A bare name resolves first against this package's own setups
 (shakti_tpu_torch/setups/), then ./setups and the current directory; a
 path to a .py file is loaded as it is.  ``--device cuda`` (the default)
 fails when no GPU is present: there is no silent CPU fallback.
+
+``--dist`` runs node-sharded on the ranks torchrun starts (parallel/dist.py,
+utils/multihost.py: NCCL on ``cuda:LOCAL_RANK``, gloo with ``--device cpu``;
+``--backend gloo`` lets ranks share one card); rank 0 writes the results.
+``--multihost`` joins the group and implies ``--dist`` when it has more than
+one rank.
 """
 
 from __future__ import annotations
@@ -81,28 +89,55 @@ def main(argv=None):
                          "fire, march two windows of K accepted pseudo-steps "
                          "and certify the limit cycle instead; the output "
                          "becomes the cycle-mean state (default 0 = off)")
+    ap.add_argument("--dist", action="store_true",
+                    help="node-sharded over the ranks of the torch.distributed"
+                         " world (launch with torchrun --nproc-per-node P)")
+    ap.add_argument("--multihost", action="store_true",
+                    help="join the process group torchrun describes "
+                         "(MASTER_ADDR/MASTER_PORT/RANK/WORLD_SIZE/"
+                         "LOCAL_RANK); implies --dist with more than one rank")
+    ap.add_argument("--backend", choices=("nccl", "gloo"), default=None,
+                    help="the process group's backend (default: nccl on "
+                         "CUDA, gloo on the CPU; gloo lets ranks share a "
+                         "card)")
     ap.add_argument("--quiet", action="store_true")
     args = ap.parse_args(argv)
 
     from shakti_tpu_torch.utils.backend import resolve_device
-    device = resolve_device(args.device)
+    from shakti_tpu_torch.utils.multihost import init_multihost, local_device
+    primary = True
+    if args.dist or args.multihost:
+        nproc, _, primary = init_multihost(args.device, args.backend)
+        if args.multihost:
+            if not args.quiet and primary:
+                print(f"multihost: {nproc} processes")
+            # multi-process runs exist only on the node-sharded path: a
+            # per-process single-device run would race on the results
+            args.dist = args.dist or nproc > 1
+    device = resolve_device(local_device(args.device))
     setup = load_setup(args.setup)
     md = setup.initialize()
     if md.setup_file is None and getattr(setup, "__file__", None):
         md.setup_file = setup.__file__
     md.device = device
+    if args.dist:
+        md.distributed = True
     if args.steady:
-        return _steady(md, args)
-    out = md.solve(resume=args.resume, progress=not args.quiet)
-    print(f"\ncompleted {out['steps']} steps in {out['wall_time']:.2f} s "
-          f"({1e3 * out['wall_time'] / max(out['steps'], 1):.3f} ms/step)")
+        return _steady(md, args, primary)
+    out = md.solve(resume=args.resume, progress=not args.quiet and primary)
+    if primary:
+        print(f"\ncompleted {out['steps']} steps in {out['wall_time']:.2f} s "
+              f"({1e3 * out['wall_time'] / max(out['steps'], 1):.3f} "
+              "ms/step)")
     return 0
 
 
-def _steady(md, args):
+def _steady(md, args, primary=True):
     """--steady: solve, print the JAX CLI's summary, write the files."""
     out = md.solve_steady(tol=args.steady_tol, cycle_window=args.cycle_window,
                           polish=args.polish)
+    if not primary:
+        return 0
     info = out["info"]
     verdict = info["verdict"]
     print(f"\n{verdict} state in {info['steps']} PTC steps "

@@ -52,10 +52,18 @@ def scatter_add_cells(mesh, contrib):
 
     contrib: (n_cells, 3) or (n_cells, 3, k) -> (n_nodes,) / (n_nodes, k).
     A gather over the node->(cell, corner) incidence map: invalid slots hold
-    the sentinel 3*n_cells, which indexes one appended zero row."""
+    the sentinel 3*n_cells, which indexes one appended zero row.  On a
+    rank's share of a distributed mesh the local sums are then completed
+    across the ranks: one halo accumulate (node-sharded, ``mesh.halo``) or
+    one sum over the ranks (cell-sharded, ``mesh.paxis``)."""
     flat = contrib.reshape((-1,) + tuple(contrib.shape[2:]))
     ext = torch.cat([flat, flat.new_zeros((1,) + tuple(flat.shape[1:]))])
-    return fixed_sum(ext[mesh.inc_map], 1)
+    out = fixed_sum(ext[mesh.inc_map], 1)
+    if getattr(mesh, "halo", None) is not None:
+        return mesh.halo.accumulate(out)
+    if getattr(mesh, "paxis", None) is not None:
+        return mesh.paxis.allsum(out)
+    return out
 
 
 def cell_to_node_avg(mesh, fc):

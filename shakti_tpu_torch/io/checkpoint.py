@@ -96,13 +96,16 @@ def save_state(results_dir: str, state: State, next_step: int, next_row: int,
 
 
 def load_state(results_dir: str, dtype=torch.float32, device="cpu",
-               fingerprint: int | None = None, mesh=None):
+               fingerprint: int | None = None, mesh=None,
+               include_lag: bool = True):
     """Returns (state, next_step, next_row), or None when there is no
     checkpoint.  Raises when ``fingerprint`` (of the current mesh) differs
     from the one the checkpoint recorded.  ``mesh``: the mesh the run
     resumes on, required to read an ELL or block-CSR carry; one stored in
     its layout is read into the structural values (one of another format or
-    mesh stays as stored, and the run layer reseeds it)."""
+    mesh stays as stored, and the run layer reseeds it).
+    ``include_lag=False`` leaves a stored carry unread (the distributed
+    path, which carries no operator)."""
     path = os.path.join(results_dir, CHECKPOINT_FILE)
     if not os.path.exists(path):
         return None
@@ -118,7 +121,8 @@ def load_state(results_dir: str, dtype=torch.float32, device="cpu",
             return torch.as_tensor(z[k], dtype=dtype, device=device)
 
         lag_op = None
-        if "lag_vals" in z.files and "lag_floor_age" in z.files:
+        if (include_lag and "lag_vals" in z.files
+                and "lag_floor_age" in z.files):
             vals = t("lag_vals")
             if mesh is None:
                 _need_mesh(vals, "load_state")

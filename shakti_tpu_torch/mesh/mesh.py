@@ -78,6 +78,19 @@ class Mesh:
     nz_diag: torch.Tensor | None = None  # (n,) flat slot of the diagonal
     # the multilevel hierarchy (solve/mg.MGPlan) when precond='mg'
     mg: object | None = None
+    # node-sharded ranks (parallel/dist.py): this mesh is one rank's
+    # [owned | ghosts | dump] view; assembly completes through
+    # halo.accumulate and reductions through halo.dot / halo.norm
+    halo: object | None = None
+    # cell-sharded ranks (parallel/shard.py): this mesh holds the rank's
+    # cells over the replicated global nodes; assembly completes with one
+    # paxis.allsum (parallel/halo.Collectives)
+    paxis: object | None = None
+    # halo meshes: the GLOBAL coarse aggregate (solver-order node id //
+    # block) of each local slot, for the global two-level preconditioner
+    # (solve/precond.make_global_two_level), and the aggregate count
+    coarse_agg: torch.Tensor | None = None
+    coarse_m: int | None = None
 
     @property
     def n_nodes(self) -> int:
@@ -199,13 +212,18 @@ def mesh_from_arrays(a: dict, *, dtype, device) -> Mesh:
 
 def build_mesh(nodes: np.ndarray, cells: np.ndarray, *, dtype=torch.float64,
                device="cpu", operator: str = "bell",
-               bell_block: int = 128) -> Mesh:
+               bell_block: int = 128, node_area=None,
+               cell_valid=None) -> Mesh:
     """Construct a device Mesh from raw arrays (host-side preprocessing).
 
     ``operator``: 'bell', 'ell', 'bcsr' (both block formats with block edge
     ``bell_block``) or 'cells' (no assembled operator).  Nodes should
     already be ordered for block locality (RCB, api/model) for the block
-    formats."""
+    formats.  ``node_area``: the nodal areas to use as they are (a rank's
+    share of a distributed mesh: the global areas of its slots, zero at its
+    dead slots) instead of the sums over ``cells``.  ``cell_valid``: 1 for
+    real cells, 0 for padding cells (zero area and gradients, so they
+    contribute nothing; a distributed rank that owns no cell keeps one)."""
     if operator not in OPERATORS:
         raise ValueError(f"operator must be one of {OPERATORS}, got "
                          f"{operator!r}")
@@ -213,17 +231,22 @@ def build_mesh(nodes: np.ndarray, cells: np.ndarray, *, dtype=torch.float64,
     cells = np.asarray(cells, dtype=np.int32)
     if cells.size and (cells.min() < 0 or cells.max() >= nodes.shape[0]):
         raise ValueError("cell connectivity references nonexistent nodes")
-    signed_area, grads = cell_geometry(nodes, cells)
-    if np.any(signed_area == 0.0):
+    valid = (np.ones(cells.shape[0]) if cell_valid is None
+             else np.asarray(cell_valid, np.float64))
+    with np.errstate(divide="ignore", invalid="ignore"):
+        signed_area, grads = cell_geometry(nodes, cells)
+    if np.any((signed_area == 0.0) & (valid > 0)):
         raise ValueError("mesh contains degenerate (zero-area) cells")
-    area = np.abs(signed_area)
+    area = np.where(valid > 0, np.abs(signed_area), 0.0)
+    grads = np.where(valid[:, None, None] > 0, grads, 0.0)
     n = nodes.shape[0]
-    node_area = np.bincount(cells.reshape(-1), weights=np.repeat(area, 3),
-                            minlength=n)
+    if node_area is None:
+        node_area = np.bincount(cells.reshape(-1), weights=np.repeat(area, 3),
+                                minlength=n)
+        node_area = np.where(node_area == 0.0, 1.0, node_area)
     arrays = dict(
         nodes=nodes, cells=cells, area=area, grads=grads,
-        node_area=np.where(node_area == 0.0, 1.0, node_area),
-        cell_valid=np.ones(cells.shape[0]),
+        node_area=np.asarray(node_area, np.float64), cell_valid=valid,
         inc_map=incidence_map(cells, n))
     if operator == "bell":
         nbr, bmap, dpos, _ = bellm.build_block_ell(cells, n, bell_block)

@@ -205,10 +205,15 @@ def fold_operator_values(J_c, mesh):
 
 
 def operator_diag_from_values(vals, mesh):
-    """Assembled diagonal of A from the folded values."""
+    """Assembled diagonal of A from the folded values (on a rank's share
+    of a node-sharded mesh, completed by one halo accumulate)."""
     if mesh.structural:
-        return ellm.structural_diag(vals, mesh)
-    return bellm.bell_diag(vals, mesh.bell_diag_pos)
+        a_diag = ellm.structural_diag(vals, mesh)
+    else:
+        a_diag = bellm.bell_diag(vals, mesh.bell_diag_pos)
+    if mesh.halo is not None:
+        a_diag = mesh.halo.accumulate(a_diag)
+    return a_diag
 
 
 def operator_from_values(vals, mesh, dirichlet, extra=None):
@@ -217,10 +222,25 @@ def operator_from_values(vals, mesh, dirichlet, extra=None):
     ``extra * x`` when ``extra`` is given (the diagonal floor).  Checked
     once here; on the card each matvec is one kernel launch
     (ops/spmv_cuda.py: bell_spmv for block-ELL, ell_spmv for BCSR and
-    ELL)."""
-    if mesh.structural:
-        return spmv.ell_operator_fn(vals, mesh, dirichlet, extra)
-    return spmv.bell_operator_fn(vals, mesh, dirichlet, extra)
+    ELL).
+
+    On a rank's share of a node-sharded mesh (``mesh.halo``) the rank's
+    operator holds its own cells' entries only: the kernel computes
+    ``where(d, x, A_local xm)`` over every local row, one halo accumulate
+    completes the owned rows and refreshes the ghosts, and the Dirichlet
+    rows and ``extra * x`` follow (a ghost copy of a Dirichlet row adds x
+    to its owner's row, which the Dirichlet select then overwrites)."""
+    fn = spmv.ell_operator_fn if mesh.structural else spmv.bell_operator_fn
+    if mesh.halo is None:
+        return fn(vals, mesh, dirichlet, extra)
+    local = fn(vals, mesh, dirichlet)
+    halo = mesh.halo
+
+    def matvec(x):
+        y = torch.where(dirichlet, x, halo.accumulate(local(x)))
+        return y if extra is None else y + extra * x
+
+    return matvec
 
 
 def make_operator(J_c, mesh, dirichlet):

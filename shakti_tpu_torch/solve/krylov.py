@@ -24,40 +24,61 @@ def norm(a, dim=None):
     return torch.linalg.vector_norm(a, dim=dim)
 
 
-def pcg(matvec, b, minv=None, x0=None, *, rtol=1e-8, atol=0.0, maxiter=1000):
+# the defaults of pcg's and bicgstab's dot= and norm= (their parameters
+# shadow the names)
+_dot, _norm = dot, norm
+
+
+def pcg(matvec, b, minv=None, x0=None, *, rtol=1e-8, atol=0.0, maxiter=1000,
+        dot=None, norm=None, dots=None):
     """Preconditioned conjugate gradients for A x = b.
 
     ``minv``: a callable preconditioner apply, a diagonal inverse (tensor),
-    or None.  Returns (x, info) with info = dict(iters, resnorm, converged)
-    as Python numbers."""
+    or None.  ``dot``/``norm``: the inner product and norm (default: this
+    module's; a node-sharded rank passes its halo's owned-slot reductions,
+    which give the same scalars on every rank).  ``dots``: optional
+    ``dots([(a, b), ...])`` -> the (k,) inner products in one reduction
+    (parallel/halo.Halo.dots): r.z and r.r are then read together, one
+    reduction per iteration fewer, the same values.  Returns (x, info)
+    with info = dict(iters, resnorm, converged) as Python numbers."""
+    dot, norm = dot or _dot, norm or _norm
+
+    def rz_rnorm(r, z):
+        if dots is None:
+            return dot(r, z), norm(r)
+        v = dots([(r, z), (r, r)])
+        return v[0], torch.sqrt(v[1])
+
     x = torch.zeros_like(b) if x0 is None else x0
     apply_pc = _preconditioner(minv)
     tol = max(rtol * float(norm(b)), float(atol))
     r = b - matvec(x)
     z = apply_pc(r)
     p = z
-    rz = dot(r, z)
+    rz, rnorm = rz_rnorm(r, z)
     k = 0
-    while float(norm(r)) > tol and k < maxiter:
+    while float(rnorm) > tol and k < maxiter:
         Ap = matvec(p)
         pAp = dot(p, Ap)
         alpha = rz / torch.where(pAp == 0, 1.0, pAp)
         x = x + alpha * p
         r = r - alpha * Ap
         z = apply_pc(r)
-        rz_new = dot(r, z)
+        rz_new, rnorm = rz_rnorm(r, z)
         beta = rz_new / torch.where(rz == 0, 1.0, rz)
         p = z + beta * p
         rz = rz_new
         k += 1
-    resnorm = float(norm(r))
+    resnorm = float(rnorm)
     return x, {"iters": k, "resnorm": resnorm, "converged": resnorm <= tol}
 
 
 def bicgstab(matvec, b, minv=None, x0=None, *, rtol=1e-8, atol=0.0,
-             maxiter=1000):
-    """Right-preconditioned BiCGStab for A x = b (``minv`` as in
-    :func:`pcg`).  Returns (x, info) like :func:`pcg`."""
+             maxiter=1000, dot=None, norm=None, dots=None):
+    """Right-preconditioned BiCGStab for A x = b (``minv``, ``dot``,
+    ``norm`` and ``dots`` as in :func:`pcg`: with ``dots``, t.t and t.s are
+    read together).  Returns (x, info) like :func:`pcg`."""
+    dot, norm = dot or _dot, norm or _norm
     x = torch.zeros_like(b) if x0 is None else x0
     apply_pc = _preconditioner(minv)
     tol = max(rtol * float(norm(b)), float(atol))
@@ -79,8 +100,9 @@ def bicgstab(matvec, b, minv=None, x0=None, *, rtol=1e-8, atol=0.0,
         s = r - alpha * v
         shat = apply_pc(s)
         t = matvec(shat)
-        tt = dot(t, t)
-        omega = dot(t, s) / torch.where(tt == 0, 1.0, tt)
+        tt, ts = (dot(t, t), dot(t, s)) if dots is None else dots(
+            [(t, t), (t, s)])
+        omega = ts / torch.where(tt == 0, 1.0, tt)
         x = x + alpha * phat + omega * shat
         r = s - omega * t
         rho = rho_new

@@ -20,8 +20,15 @@ the smoother and the coarse space.  Here:
 
 Every scalar of the apply (the Gershgorin bounds, the Chebyshev
 coefficients) stays a 0-d device tensor: an apply syncs nothing with the
-host.  The JAX package's halo (SPMD) branches wait for the distributed
-port (ROADMAP).
+host.
+
+On a rank's share of a node-sharded mesh (``mesh.halo``, parallel/dist.py)
+the hierarchy is global and replicated: the rank's level-1 entries (its own
+cells', :func:`localize_hierarchy`) are completed by one sum over the
+ranks, every coarser level is the same computation on every rank, the fine
+restriction is an owned-masked planned sum and one sum over the ranks, and
+the prolongation reads the replicated coarse vector through each slot's
+global aggregate.
 """
 
 from __future__ import annotations
@@ -59,6 +66,9 @@ class MGPlan:
     sums: tuple               # chunked plans of the assembly sums
     m_c: int = 0
     agg: int = 16
+    # a rank's share (localize_hierarchy): the gather plan (slots, idx) of
+    # the fine restriction's sum of its slots into level-1 aggregates
+    restrict: tuple = ()
 
     @property
     def sizes(self) -> list:
@@ -148,6 +158,35 @@ def build_hierarchy(cells: np.ndarray, n_nodes: int, *, agg: int = 16,
                   m_c=int(m_c), agg=int(agg))
 
 
+def localize_hierarchy(plan: MGPlan, cell_ids: np.ndarray,
+                       glob_ids: np.ndarray, device) -> MGPlan:
+    """One rank's view of a global hierarchy: the level-1 targets of its
+    own cells' 9 element entries (``cell_ids``: the rank's global cell ids
+    in local order) and their planned sum, and the global level-1
+    aggregate of each local slot (``glob_ids``: the global node of each
+    slot; dead slots alias node 0, and the restriction masks them).  The
+    coarser levels are the global ones."""
+    map9 = plan.map9.cpu().numpy().reshape(-1, 9)[cell_ids].reshape(-1)
+    size = int(plan.sums[0][3])
+    sum1 = tuple(torch.as_tensor(a, device=device) for a in chunked_plan(
+        map9, np.arange(map9.size), map9.size, _CHUNK)) + (size,)
+
+    def t(a):
+        return a.to(device) if torch.is_tensor(a) else torch.as_tensor(
+            a, device=device)
+
+    agg_fine = (np.asarray(glob_ids, np.int64) // plan.agg).astype(np.int32)
+    return MGPlan(map9=t(map9), agg_fine=t(agg_fine),
+                  cols=tuple(t(c) for c in plan.cols),
+                  diag_slot=tuple(t(d) for d in plan.diag_slot),
+                  next_map=tuple(t(m) for m in plan.next_map),
+                  sums=(sum1,) + tuple(
+                      tuple(t(a) for a in s_[:3]) + (s_[3],)
+                      for s_ in plan.sums[1:]),
+                  m_c=plan.m_c, agg=plan.agg,
+                  restrict=tuple(t(a) for a in ops.gather_plan(agg_fine)))
+
+
 def attach_hierarchy(mesh, cfg):
     """``mesh`` with the hierarchy of ``cfg`` (mg_agg, mg_coarse_cap) when
     cfg.precond is 'mg' and the mesh is larger than the cap; else ``mesh``
@@ -173,6 +212,10 @@ def assemble_levels(J_c, mesh, dirichlet, plan: MGPlan):
     levels = []
     for lvl, (slots, idx1, idx2, size) in enumerate(plan.sums):
         v = chunked_sum(v, slots, idx1, idx2, size)
+        if lvl == 0 and mesh.halo is not None:
+            # cells are partitioned disjointly: one sum over the ranks
+            # completes level 1; everything below is replicated
+            v = mesh.halo.allsum(v)
         if lvl < len(plan.cols):
             m, K = plan.cols[lvl].shape
             V = v.reshape(m, K)
@@ -237,6 +280,7 @@ def make_multilevel(J_c, mesh, dirichlet, a_diag, matvec, *,
     if cycle not in ("v", "w"):
         raise ValueError(f"mg_cycle must be 'v' or 'w', got {cycle!r}")
     plan: MGPlan = mesh.mg
+    halo = mesh.halo
     dtype = a_diag.dtype
     tiny = torch.finfo(dtype).tiny
     levels, A_inv = assemble_levels(J_c, mesh, dirichlet, plan)
@@ -254,9 +298,16 @@ def make_multilevel(J_c, mesh, dirichlet, a_diag, matvec, *,
         aJ = torch.abs(J_c) * (wc[:, :, None] * wc[:, None, :])
         offabs_c = aJ.sum(dim=2) - torch.diagonal(aJ, dim1=1, dim2=2)
         offabs = ops.scatter_add_cells(mesh, offabs_c)
+        if halo is not None:
+            # a second accumulate, as the JAX package's halo branch does
+            # (its scatter already accumulated): ghost copies add into the
+            # owned rows again, which only raises the upper bound
+            offabs = halo.accumulate(offabs)
         ratio = torch.where(dirichlet | (a_diag <= tiny), 1.0,
                             1.0 + offabs / d0)
         lmax0 = torch.max(ratio)
+        if halo is not None:
+            lmax0 = halo.max(lmax0)
     if cheb:
         smooth0 = _make_cheb(matvec, torch.where(dirichlet, 0.0, 1.0 / d0),
                              lmax0, cheb_deg, cheb_frac)
@@ -264,11 +315,23 @@ def make_multilevel(J_c, mesh, dirichlet, a_diag, matvec, *,
     sizes = plan.sizes
     n = a_diag.shape[0]
 
-    def restrict_fine(r):
-        return _restrict(r, sizes[0], agg, n)
+    if halo is None:
+        def restrict_fine(r):
+            return _restrict(r, sizes[0], agg, n)
 
-    def prolong_fine(xc):
-        return torch.repeat_interleave(xc, agg)[:n]
+        def prolong_fine(xc):
+            return torch.repeat_interleave(xc, agg)[:n]
+    else:
+        own = halo.owned_mask
+
+        def restrict_fine(r):
+            return halo.allsum(ops.plan_sum(r * own, *plan.restrict,
+                                            sizes[0]))
+
+        def prolong_fine(xc):
+            # the replicated xc through each slot's global aggregate: the
+            # same value on every copy of a node, no push
+            return xc[plan.agg_fine]
 
     if sp:
         w_p = smooth_p / lmax0

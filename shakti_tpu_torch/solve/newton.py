@@ -84,8 +84,11 @@ class NewtonConfig:
 
 def diag_floor_extra(a_diag, dirichlet, mesh, rel):
     """Per-row increment lifting near-zero (collapsed-sheet) operator rows
-    to ``rel * max|diag|`` (NewtonConfig.diag_floor_rel)."""
+    to ``rel * max|diag|`` (NewtonConfig.diag_floor_rel); the max is taken
+    over every rank of a node-sharded mesh, so all ranks floor alike."""
     dmax = torch.max(torch.where(dirichlet, 0.0, torch.abs(a_diag)))
+    if mesh.halo is not None:
+        dmax = mesh.halo.max(dmax)
     return torch.where(dirichlet, 0.0, torch.clamp_min(rel * dmax - a_diag, 0.0))
 
 
@@ -128,7 +131,7 @@ def zero_lag(mesh, dtype, cfg: NewtonConfig):
     a_diag = torch.zeros(mesh.n_nodes, dtype=dtype, device=dev)
     block = 64 if cfg.coarse_block is None else cfg.coarse_block
     A_inv = None
-    if cfg.precond == "two_level":
+    if cfg.precond == "two_level" and mesh.halo is None and mesh.paxis is None:
         m = -(-mesh.n_nodes // block)
         A_inv = torch.zeros((m, m), dtype=dtype, device=dev)
     return (False, 0, vals, a_diag, A_inv, 0.0, 0)
@@ -162,7 +165,11 @@ def newton_solve(N_init, pre, mesh, dirichlet, dirichlet_value, params,
     if cfg.coarse_block is None:
         cfg = dataclasses.replace(cfg, coarse_block=64)
     lin_solve = krylov.get_solver(cfg.krylov)
-    norm = krylov.norm
+    # a node-sharded rank reduces over its owned slots and every rank
+    # (the same scalars on all ranks, so all take the same branches)
+    halo = mesh.halo
+    dot, norm = ((halo.dot, halo.norm) if halo is not None
+                 else (None, krylov.norm))
 
     def resid(N):
         return torch.where(dirichlet, 0.0,
@@ -172,7 +179,8 @@ def newton_solve(N_init, pre, mesh, dirichlet, dirichlet_value, params,
     Nr = N0 if N_ref is None else torch.where(dirichlet, dirichlet_value, N_ref)
     fi = torch.finfo(N0.dtype)
     tiny, eps = fi.tiny, fi.eps
-    use_two_level = cfg.precond == "two_level"
+    use_two_level = (cfg.precond == "two_level" and halo is None
+                     and mesh.paxis is None)
     lag_on = bool(cfg.lag_operator)
     if lag_on and lag is None:
         lag = zero_lag(mesh, N0.dtype, cfg)
@@ -238,7 +246,9 @@ def newton_solve(N_init, pre, mesh, dirichlet, dirichlet_value, params,
                     if use_two_level
                     else pc.make_jacobi(a_diag, dirichlet, tiny))
         dN, lin_info = lin_solve(matvec, s["r"], minv, rtol=cfg.lin_rtol,
-                                 atol=0.1 * atol_eff, maxiter=cfg.lin_maxiter)
+                                 atol=0.1 * atol_eff, maxiter=cfg.lin_maxiter,
+                                 dot=dot, norm=None if halo is None else norm,
+                                 dots=None if halo is None else halo.dots)
         a = cfg.relaxation
         N_new = N + a * dN
         r = resid(N_new)

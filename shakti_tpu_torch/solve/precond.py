@@ -2,14 +2,17 @@
 two-level (Jacobi + Galerkin coarse correction over contiguous aggregates)
 and the multilevel V-cycle 'mg' (solve/mg.py).
 
-Port of shakti_tpu/solve/precond.py (single device).  The two-level coarse
+Port of shakti_tpu/solve/precond.py.  The two-level coarse
 operator is rebuilt from the folded values where they tile the aggregates
 (:func:`coarse_from_values`: always for ELL and block-CSR, whose values are
 stored entry by entry (fem/ell.py); for block-ELL when the aggregate is a
 multiple of the block edge or divides it), else from the element blocks
 (:func:`coarse_inverse`, also the matrix-free operator's).  Every aggregate
 sum is a deterministic gather over a host-built plan, cached per
-(structure, block), not an atomic scatter.
+(structure, block), not an atomic scatter.  On a rank's share of a
+node-sharded mesh (parallel/dist.py) 'two_level' is the global two-level
+(one coarse operator summed over the ranks) or the per-rank one
+(:func:`make_global_two_level`, :func:`make_local_two_level`).
 """
 
 from __future__ import annotations
@@ -195,6 +198,97 @@ def two_level_from_inverse(A_inv, a_diag, dirichlet, block: int, n: int):
     return apply
 
 
+def _rank_plans(mesh, block=None):
+    """The host plans of the distributed two-level builds on ``mesh`` (a
+    rank's share), cached on its cells tensor: the coarse operator's sum
+    over the 9c element entries by (row, column) aggregate (chunked: an
+    aggregate pair gathers up to ~18 * block entries) and, for the global
+    two-level, the restriction's sum over ``coarse_agg``."""
+    key = ("rank", id(mesh.cells), block, mesh.n_nodes)
+    plan = _PLANS.get(key)
+    if plan is None:
+        cells = mesh.cells.cpu().numpy()
+        if block is None:               # global aggregates
+            agg = mesh.coarse_agg.cpu().numpy().astype(np.int64)
+            a3, m = agg[cells], mesh.coarse_m
+        else:
+            a3, m = cells // block, -(-mesh.n_nodes // block)
+        keys = (a3[:, :, None] * m + a3[:, None, :]).reshape(-1)
+        dev = mesh.cells.device
+        plan = tuple(torch.as_tensor(a, device=dev) for a in
+                     chunked_plan(keys, np.arange(keys.size), keys.size))
+        if block is None:
+            plan = plan + tuple(torch.as_tensor(a, device=dev)
+                                for a in gather_plan(agg))
+        _PLANS[key] = plan
+        weakref.finalize(mesh.cells, _PLANS.pop, key, None)
+    return plan
+
+
+def _free_coarse(J_c, mesh, free, plan, m):
+    """The Galerkin coarse sum of the rank's free-masked element entries,
+    (m*m,): the rank's share, before any sum over the ranks."""
+    wc = free[mesh.cells]                                        # (c, 3)
+    flat = -J_c * (wc[:, :, None] * wc[:, None, :])
+    return chunked_sum(flat, *plan[:3], m * m)
+
+
+def make_local_two_level(J_c, mesh, dirichlet, a_diag, block: int = 64):
+    """Per-rank additive two-level on a node-sharded mesh (``mesh.halo``):
+    each rank Galerkin-coarsens its own cells over contiguous local
+    aggregates restricted to its owned rows, inverts its coarse problem, and
+    pushes the owners' corrections into the ghost copies (one exchange per
+    apply).  Block-Jacobi across ranks at the coarse level (the JAX
+    package's make_local_two_level)."""
+    halo = mesh.halo
+    n = mesh.n_nodes
+    m = -(-n // block)
+    dtype = a_diag.dtype
+    tiny = torch.finfo(dtype).tiny
+    jacobi = make_jacobi(a_diag, dirichlet, tiny)
+    own = halo.owned_mask
+    free = (~dirichlet).to(dtype) * own
+    A_c = _free_coarse(J_c, mesh, free, _rank_plans(mesh, block), m)
+    A_inv = regularized_inverse(A_c.reshape(m, m), m, dtype, tiny)
+    pad = m * block - n
+
+    def apply(r):
+        rf = torch.where(dirichlet, 0.0, r) * own
+        rc = torch.nn.functional.pad(rf, (0, pad)).reshape(m, block).sum(dim=1)
+        z = torch.repeat_interleave(A_inv @ rc, block)[:n] * own
+        return jacobi(r) + torch.where(dirichlet, 0.0, halo.push(z))
+
+    return apply
+
+
+def make_global_two_level(J_c, mesh, dirichlet, a_diag):
+    """The global additive two-level on a node-sharded mesh (``mesh.halo``
+    with ``mesh.coarse_agg``, the global aggregate of each local slot): each
+    rank sums its own cells' entries of the one global Galerkin coarse
+    operator, a sum over the ranks completes it (cells are partitioned
+    disjointly), and every rank inverts the same matrix.  An apply is an
+    owned-masked restriction, one sum of the m-vector over the ranks and a
+    small product; the prolonged correction is the same on every copy of a
+    node, so no push (the JAX package's make_global_two_level)."""
+    halo = mesh.halo
+    agg, m = mesh.coarse_agg, mesh.coarse_m
+    dtype = a_diag.dtype
+    tiny = torch.finfo(dtype).tiny
+    jacobi = make_jacobi(a_diag, dirichlet, tiny)
+    plan = _rank_plans(mesh)
+    free = (~dirichlet).to(dtype)
+    A_c = halo.allsum(_free_coarse(J_c, mesh, free, plan, m))
+    A_inv = regularized_inverse(A_c.reshape(m, m), m, dtype, tiny)
+    own = halo.owned_mask
+
+    def apply(r):
+        rf = torch.where(dirichlet, 0.0, r) * own
+        rc = halo.allsum(plan_sum(rf, *plan[3:], m))
+        return jacobi(r) + torch.where(dirichlet, 0.0, (A_inv @ rc)[agg])
+
+    return apply
+
+
 def make_preconditioner(name: str, mesh, dirichlet, a_diag,
                         coarse_block: int = 64, *, vals=None, J_c=None,
                         matvec=None, mg_omega: float = 0.8,
@@ -206,7 +300,17 @@ def make_preconditioner(name: str, mesh, dirichlet, a_diag,
     else from the element blocks ``J_c``; or the multilevel 'mg' V-cycle
     (solve/mg.py) from ``J_c`` and the fine ``matvec`` the Krylov solver
     gets, which becomes 'two_level' on a mesh without a hierarchy (at or
-    below mg_coarse_cap nodes)."""
+    below mg_coarse_cap nodes).
+
+    On a rank's share of a distributed mesh: the cell-sharded step
+    (``mesh.paxis``) takes Jacobi whatever ``name``; a node-sharded rank
+    (``mesh.halo``) takes for 'two_level' the global two-level when the
+    mesh carries global aggregates, else the per-rank one when the rank has
+    at least 4 aggregates' worth of slots, else Jacobi (the JAX package's
+    dispatch)."""
+    tiny = torch.finfo(a_diag.dtype).tiny
+    if mesh.paxis is not None:
+        return make_jacobi(a_diag, dirichlet, tiny)
     if name == "mg":
         if mesh.mg is not None:
             from shakti_tpu_torch.solve.mg import make_multilevel
@@ -216,6 +320,13 @@ def make_preconditioner(name: str, mesh, dirichlet, a_diag,
                                    cheb_frac=mg_cheb_frac, cycle=mg_cycle,
                                    smooth_p=mg_smooth_p)
         name = "two_level"
+    if name == "two_level" and mesh.halo is not None:
+        if mesh.coarse_agg is not None:
+            return make_global_two_level(J_c, mesh, dirichlet, a_diag)
+        if mesh.n_nodes >= 4 * coarse_block:
+            return make_local_two_level(J_c, mesh, dirichlet, a_diag,
+                                        coarse_block)
+        return make_jacobi(a_diag, dirichlet, tiny)
     if name == "two_level":
         if vals is not None and vals_coarse_ok(mesh, coarse_block):
             A_inv = coarse_from_values(vals, mesh, dirichlet, coarse_block)
@@ -224,7 +335,7 @@ def make_preconditioner(name: str, mesh, dirichlet, a_diag,
         return two_level_from_inverse(A_inv, a_diag, dirichlet, coarse_block,
                                       mesh.n_nodes)
     if name == "jacobi":
-        return make_jacobi(a_diag, dirichlet, torch.finfo(a_diag.dtype).tiny)
+        return make_jacobi(a_diag, dirichlet, tiny)
     raise ValueError(f"preconditioner must be one of {PRECONDITIONERS}, "
                      f"got {name!r}")
 

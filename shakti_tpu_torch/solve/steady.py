@@ -1,6 +1,6 @@
 """Direct steady-state solver: pseudo-transient continuation (PTC).
 
-Port of shakti_tpu/solve/steady.py (single device; its module docstring
+Port of shakti_tpu/solve/steady.py (its module docstring
 gives the method, its measurements and why each mechanism exists).  The
 timestep is reused as the PTC iteration with the semi-implicit gap update;
 dt adapts by switched-evolution relaxation (SER) under two stability caps
@@ -15,7 +15,10 @@ Each ``lax.while_loop`` of the JAX package is a Python loop over a carry
 dict with the same keys, whose entries are 0-d or nodal tensors.  Accept,
 reject, SER, the caps and the detectors stay tensor arithmetic
 (``torch.where``); the loop's one ``done``/``k < k_end`` test per step is
-the only host sync the march adds to the step's own.
+the only host sync the march adds to the step's own.  On a rank's share
+of a node-sharded mesh (``mesh=``, parallel/dist.py) every norm, dot, max
+and finiteness test runs over the ranks, so all ranks take each decision
+alike.
 """
 
 from __future__ import annotations
@@ -49,12 +52,37 @@ def _norm(x, m=None):
     return torch.linalg.vector_norm(x if m is None else x * m)
 
 
+def _reductions(mesh, drift_mask, dtype, dev):
+    """(act, exc, mnorm, mdot, pamax, pall) of a march: the certificate mask
+    (None: every node), the mask-excluded nodes, the (masked) norm and dot,
+    the max over the nodes' contributions and the all-ranks test.  On a
+    node-sharded mesh (``mesh.halo``) the masks keep the owned slots only
+    and every reduction runs over the ranks, so each rank takes the same
+    decisions."""
+    halo = None if mesh is None else mesh.halo
+    act = None if drift_mask is None else torch.as_tensor(drift_mask).to(
+        device=dev, dtype=dtype)
+    if halo is None:
+        exc = None if act is None else 1.0 - act
+        return (act, exc, _norm, lambda a, b: torch.sum(a * b),
+                lambda x: x, lambda x: x)
+    own = halo.owned_mask
+    if act is not None:
+        act = act * own
+    exc = None if act is None else own - act
+
+    def mnorm(x, m=None):
+        return halo.norm(x if m is None else x * m)
+
+    return act, exc, mnorm, halo.dot, halo.max, halo.all
+
+
 def steady_solve(step_fn, state0, *, params, dt0=3600.0, dt_max=1e9,
                  tol=1e-2, t_ref=YEAR, max_steps=2000, growth_cap=4.0,
                  shrink=0.25, max_rel_change=0.5, stab_safety=2.0,
                  drift_mask=None, kappa0=1.0, kappa_min=1e-3,
                  osc_corr=-0.5, osc_M=20, stall_M=200, imp_eps=0.02,
-                 carry_in=None, return_carry=False):
+                 carry_in=None, return_carry=False, mesh=None):
     """March ``step_fn`` (built by :func:`make_steady_step`) to steady state
     with adaptive pseudo-timesteps.  ``state0.lag_op`` must be None.
 
@@ -67,7 +95,9 @@ def steady_solve(step_fn, state0, *, params, dt0=3600.0, dt_max=1e9,
     ``rate_b_bdry``, ``kappa``, ``dt``, ``t_pseudo``, ``newton_total``,
     ``cg_total``.  ``carry_in`` re-enters the march with the carry of an
     earlier call (raise its ``k_end`` first); ``return_carry=True`` appends
-    the carry to the return (api/steady.py's segmented march)."""
+    the carry to the return (api/steady.py's segmented march).  ``mesh``:
+    the step's mesh; on a rank's share of a node-sharded mesh every norm,
+    max and test of the march runs over the ranks (parallel/dist.py)."""
     if state0.lag_op is not None:
         raise ValueError("steady_solve requires lag_operator=False "
                          "(State.lag_op must be None)")
@@ -80,31 +110,33 @@ def steady_solve(step_fn, state0, *, params, dt0=3600.0, dt_max=1e9,
     def i32(v):
         return torch.as_tensor(v, dtype=torch.int32, device=dev)
 
-    act = None if drift_mask is None else torch.as_tensor(drift_mask).to(
-        device=dev, dtype=dtype)
-    exc = None if act is None else 1.0 - act
+    act, exc, mnorm, mdot, pamax, pall = _reductions(mesh, drift_mask,
+                                                     dtype, dev)
+    own = None if mesh is None or mesh.halo is None else mesh.halo.owned_mask
 
     def rates(old, new, dt):
-        rN = _norm(new.N - old.N, act) / torch.clamp_min(_norm(old.N, act), tiny)
-        rb = _norm(new.b - old.b, act) / torch.clamp_min(_norm(old.b, act), tiny)
+        rN = mnorm(new.N - old.N, act) / torch.clamp_min(mnorm(old.N, act), tiny)
+        rb = mnorm(new.b - old.b, act) / torch.clamp_min(mnorm(old.b, act), tiny)
         per_ref = t_ref / dt
         rbx = f(0.0)
         if exc is not None:
-            rbx = (_norm(new.b - old.b, exc)
-                   / torch.clamp_min(_norm(old.b, exc), tiny)) * per_ref
+            rbx = (mnorm(new.b - old.b, exc)
+                   / torch.clamp_min(mnorm(old.b, exc), tiny)) * per_ref
         return rN * per_ref, rb * per_ref, rb, rbx
 
     def dt_cap(state, kappa):
         """(min of both caps, the coupling cap): the melt-opening feedback
         +3 m/(rho_i b) and the staggered b<->N coupling kappa/(A |N|^n),
-        over certificate nodes only."""
+        over certificate nodes only (and, sharded, each node once, through
+        its owner)."""
         lam = 3.0 * torch.clamp_min(state.melt, 0.0) / (
             params.rho_i * torch.clamp_min(state.b, tiny))
         lam2 = params.A * torch.abs(state.N) ** params.n
-        if act is not None:
-            lam, lam2 = lam * act, lam2 * act
-        cap1 = stab_safety / torch.clamp_min(torch.max(lam), tiny)
-        cap2 = kappa / torch.clamp_min(torch.max(lam2), tiny)
+        m = act if act is not None else own
+        if m is not None:
+            lam, lam2 = lam * m, lam2 * m
+        cap1 = stab_safety / torch.clamp_min(pamax(torch.max(lam)), tiny)
+        cap2 = kappa / torch.clamp_min(pamax(torch.max(lam2)), tiny)
         return torch.minimum(cap1, cap2), cap2
 
     def body(c):
@@ -112,14 +144,14 @@ def steady_solve(step_fn, state0, *, params, dt0=3600.0, dt_max=1e9,
         new_state, d = step_fn(state, dt)
         rate_N, rate_b, rel_b, rate_bx = rates(state, new_state, dt)
         accept = (torch.as_tensor(bool(d["converged"]), device=dev)
-                  & _finite(new_state) & (rel_b <= max_rel_change))
+                  & pall(_finite(new_state)) & (rel_b <= max_rel_change))
         rate = torch.maximum(rate_N, rate_b)
         out_state = _select(accept, new_state, state)
         done = accept & (rate < tol)
         # period-2 signature: correlation of consecutive accepted increments
         dN = new_state.N - state.N
-        ndN = _norm(dN, act)
-        corr = torch.sum((dN if act is None else dN * act) * c["dN_prev"]) \
+        ndN = mnorm(dN, act)
+        corr = mdot(dN if act is None else dN * act, c["dN_prev"]) \
             / torch.clamp_min(ndN * c["ndN_prev"], tiny)
         cap_all, cap2 = dt_cap(out_state, kappa)
         # both detectors run on windows of accepted steps and fire only when
@@ -247,7 +279,7 @@ def steady_info_from_carry(c):
 
 def cycle_certify(step_fn, state0, *, params, dt, tol=1e-2, t_ref=YEAR,
                   window=400, max_attempts=None, shrink=0.25,
-                  max_rel_change=0.5, drift_mask=None):
+                  max_rel_change=0.5, drift_mask=None, mesh=None):
     """Certify a PTC plateau as a statistically stationary limit cycle: two
     consecutive windows of ``window`` accepted steps at the plateau's
     pseudo-timestep ``dt`` (no SER; a rejection shrinks dt, which regrows
@@ -261,7 +293,8 @@ def cycle_certify(step_fn, state0, *, params, dt, tol=1e-2, t_ref=YEAR,
     ``(mean_state, info)``: the window-2 time mean and ``certified``,
     ``cycle_rate``, ``amp_N``/``amp_b`` (relative RMS amplitude of window
     2), ``t_window``, ``steps``/``accepted``/``rejected``,
-    ``newton_total``/``cg_total``, scalars still tensors."""
+    ``newton_total``/``cg_total``, scalars still tensors.  ``mesh`` as in
+    :func:`steady_solve`."""
     if max_attempts is None:
         max_attempts = 4 * window
     dtype, dev = state0.N.dtype, state0.N.device
@@ -273,8 +306,7 @@ def cycle_certify(step_fn, state0, *, params, dt, tol=1e-2, t_ref=YEAR,
     def i32(v):
         return torch.as_tensor(v, dtype=torch.int32, device=dev)
 
-    act = None if drift_mask is None else torch.as_tensor(drift_mask).to(
-        device=dev, dtype=dtype)
+    act, _, mnorm, _, _, pall = _reductions(mesh, drift_mask, dtype, dev)
     dt = f(dt)
     N0, b0, q0, melt0 = state0.N, state0.b, state0.q, state0.melt
     zeros = torch.zeros_like
@@ -282,10 +314,10 @@ def cycle_certify(step_fn, state0, *, params, dt, tol=1e-2, t_ref=YEAR,
     def body(c):
         state = c["state"]
         new_state, d = step_fn(state, c["dt"])
-        rel_b = _norm(new_state.b - state.b, act) \
-            / torch.clamp_min(_norm(state.b, act), tiny)
+        rel_b = mnorm(new_state.b - state.b, act) \
+            / torch.clamp_min(mnorm(state.b, act), tiny)
         accept = (torch.as_tensor(bool(d["converged"]), device=dev)
-                  & _finite(new_state) & (rel_b <= max_rel_change))
+                  & pall(_finite(new_state)) & (rel_b <= max_rel_change))
         out_state = _select(accept, new_state, state)
 
         def add(s, v):
@@ -296,9 +328,9 @@ def cycle_certify(step_fn, state0, *, params, dt, tol=1e-2, t_ref=YEAR,
         sb = add(c["sb"], out_state.b - b0)
         sq = add(c["sq"], out_state.q - q0)
         sm = add(c["sm"], out_state.melt - melt0)
-        s2N = c["s2N"] + torch.where(accept, _norm(out_state.N - N0, act) ** 2,
+        s2N = c["s2N"] + torch.where(accept, mnorm(out_state.N - N0, act) ** 2,
                                      f(0.0))
-        s2b = c["s2b"] + torch.where(accept, _norm(out_state.b - b0, act) ** 2,
+        s2b = c["s2b"] + torch.where(accept, mnorm(out_state.b - b0, act) ** 2,
                                      f(0.0))
         n = c["n"] + accept.to(torch.int32)
         tw = c["tw"] + torch.where(accept, c["dt"], f(0.0))
@@ -360,18 +392,18 @@ def cycle_certify(step_fn, state0, *, params, dt, tol=1e-2, t_ref=YEAR,
         N_prev=None if state0.N_prev is None else N0 + c["m2N"])
 
     def nrm(x, off):
-        return torch.clamp_min(_norm(x + off, act), tiny)
+        return torch.clamp_min(mnorm(x + off, act), tiny)
 
     t2 = torch.clamp_min(c["t2"], tiny)
-    dN = _norm(c["m2N"] - c["m1N"], act) / nrm(c["m1N"], N0)
-    db = _norm(c["m2b"] - c["m1b"], act) / nrm(c["m1b"], b0)
+    dN = mnorm(c["m2N"] - c["m1N"], act) / nrm(c["m1N"], N0)
+    db = mnorm(c["m2b"] - c["m1b"], act) / nrm(c["m1b"], b0)
     cycle_rate = torch.maximum(dN, db) * t_ref / t2
     # relative RMS amplitude of window 2 around its mean:
     # Var = E||x - x0||^2 - ||mean - x0||^2
     ampN = torch.sqrt(torch.clamp_min(
-        c["v2N"] - _norm(c["m2N"], act) ** 2, 0.0)) / nrm(c["m2N"], N0)
+        c["v2N"] - mnorm(c["m2N"], act) ** 2, 0.0)) / nrm(c["m2N"], N0)
     ampb = torch.sqrt(torch.clamp_min(
-        c["v2b"] - _norm(c["m2b"], act) ** 2, 0.0)) / nrm(c["m2b"], b0)
+        c["v2b"] - mnorm(c["m2b"], act) ** 2, 0.0)) / nrm(c["m2b"], b0)
     done = c["phase"] >= 2
     info = {
         "certified": done & (cycle_rate < tol),

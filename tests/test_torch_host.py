@@ -1,8 +1,9 @@
 """The port's copies of shakti_tpu's numpy host modules against the originals,
 on the slab 12x12, lake 16x16 and Cook_E2 bench meshes: mesh generation,
-.msh reading and writing, RCB ordering, boundary and Dirichlet location,
-the lake's point-in-polygon mask, gridded interpolation and the quadrature
-tables.
+.msh reading and writing, RCB ordering and partitioning (rcb_partition,
+partition_cells, pad_to_blocks), the halo plan and its localize /
+globalize maps, boundary and Dirichlet location, the lake's
+point-in-polygon mask, gridded interpolation and the quadrature tables.
 The originals may take their native library's path here; the copies keep
 the numpy path only, so integer results must be equal and interpolated
 values agree to roundoff (1e-14 of scale)."""
@@ -17,6 +18,7 @@ from shakti_tpu.fem import p1 as jp1
 from shakti_tpu.mesh import generate as jgen
 from shakti_tpu.mesh import geometry as jgeo
 from shakti_tpu.mesh import msh_io as jmsh
+from shakti_tpu.parallel import halo as jhalo
 from shakti_tpu.parallel import partition as jpart
 from shakti_tpu.params import DEFAULT_PARAMS as JP
 from shakti_tpu_torch import params as tparams
@@ -25,6 +27,7 @@ from shakti_tpu_torch.fem import p1 as tp1
 from shakti_tpu_torch.mesh import generate as tgen
 from shakti_tpu_torch.mesh import geometry as tgeo
 from shakti_tpu_torch.mesh import msh_io as tmsh
+from shakti_tpu_torch.parallel import halo as thalo
 from shakti_tpu_torch.parallel import partition as tpart
 from tests import torch_parity  # noqa: F401  (pins torch's threads)
 
@@ -208,3 +211,40 @@ def test_quadrature(degree):
 def test_params():
     assert tparams.DEFAULT_PARAMS.replace(g=1.0) == tparams.PhysicalParams(g=1.0)
     assert (vars(tparams.DEFAULT_PARAMS) == vars(JP))
+
+
+@pytest.mark.parametrize("name", MESHES)
+@pytest.mark.parametrize("parts", [2, 3, 8])
+def test_rcb_partition_and_cells(name, parts):
+    nodes, cells = _mesh(name)
+    np.testing.assert_array_equal(tpart.rcb_partition(nodes, parts),
+                                  jpart.rcb_partition(nodes, parts))
+    order, counts = tpart.partition_cells(nodes, cells, parts)
+    jorder, jcounts = jpart.partition_cells(nodes, cells, parts)
+    np.testing.assert_array_equal(order, jorder)
+    np.testing.assert_array_equal(counts, jcounts)
+    for a, b in zip(tpart.pad_to_blocks(order, counts),
+                    jpart.pad_to_blocks(jorder, jcounts)):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("name", MESHES)
+@pytest.mark.parametrize("parts", [2, 4, 8])
+def test_build_halo_and_localize(name, parts):
+    nodes, cells = _mesh(name)
+    order = jpart.rcb_order(nodes)
+    cells = np.argsort(order)[cells].astype(np.int32)
+    n = nodes.shape[0]
+    plan, jplan = thalo.build_halo(n, cells, parts), jhalo.build_halo(
+        n, cells, parts)
+    assert plan.keys() == jplan.keys()
+    for k in plan:
+        np.testing.assert_array_equal(plan[k], jplan[k], err_msg=k)
+    f = np.random.default_rng(0).normal(size=(n, 2))
+    loc = thalo.localize_nodal(plan, f)
+    np.testing.assert_array_equal(loc, jhalo.localize_nodal(jplan, f))
+    for p in range(parts):
+        np.testing.assert_array_equal(thalo.localize_rank(plan, f, p), loc[p])
+    np.testing.assert_array_equal(thalo.globalize_nodal(plan, loc),
+                                  jhalo.globalize_nodal(jplan, loc))
+    np.testing.assert_array_equal(thalo.globalize_nodal(plan, loc), f)

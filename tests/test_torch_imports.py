@@ -5,8 +5,10 @@ interpreter that imports every module of the package and runs a small
 model's freeze and one operator matvec ends with neither package loaded,
 none of the optional libraries that only some functions need (h5py,
 netCDF4, PIL, matplotlib, pyproj: the machine with the card has none of
-them) and no native host library mapped.  The package's top-level names
-resolve to the port's objects, as shakti_tpu's resolve to its own."""
+them) and no native host library mapped.  Nor does a rank of the
+distributed path (parallel/dist.py, two gloo ranks spawned from
+tests/torch_dist_worker.py).  The package's top-level names resolve to the
+port's objects, as shakti_tpu's resolve to its own."""
 
 import ast
 import os
@@ -17,12 +19,13 @@ from pathlib import Path
 import pytest
 
 from tests import torch_parity  # noqa: F401  (pins torch's threads)
+from tests.torch_parity import case, spawn_world
 
 ROOT = Path(__file__).resolve().parents[1]
 SOURCES = sorted(str(p.relative_to(ROOT))
                  for p in (ROOT / "shakti_tpu_torch").rglob("*.py")) + [
     "chip_smoke.py", "tests/torch_golden_cases.py",  # chip_smoke loads it
-    "torch_ab.py"]
+    "torch_ab.py", "tests/torch_dist_worker.py"]   # a rank of the dist tests
 FORBIDDEN = ("jax", "jaxlib", "shakti_tpu")
 
 
@@ -147,3 +150,8 @@ def test_top_level_names(pkg):
         assert shakti_tpu_torch.DEFAULT_PARAMS.g == 9.81
         with pytest.raises(AttributeError, match="no attribute"):
             shakti_tpu_torch.no_such_name
+
+
+def test_spawned_ranks_load_no_jax_nor_shakti_tpu(tmp_path):
+    for r in case(spawn_world("imports", 2, tmp_path), "modules"):
+        assert r["bad"].size == 0, list(r["bad"])

@@ -44,3 +44,99 @@ def rel_err(got, ref):
     got, ref = np.asarray(got), np.asarray(ref)
     scale = np.abs(ref).max() or 1.0
     return float(np.abs(got - ref).max() / scale)
+
+
+def free_port() -> int:
+    import socket
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def start_world(suite: str, world: int, out_dir, env_init: bool = False):
+    """Start tests/torch_dist_worker.py's ``suite`` on ``world`` gloo ranks
+    (one subprocess each, file:// init, or torchrun's variables with
+    ``env_init``); :func:`finish_world` collects it."""
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    worker = os.path.join(root, "tests", "torch_dist_worker.py")
+    out_dir = str(out_dir)
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    env.pop("SHAKTI_RUN_GROUP", None)
+    init = os.path.join(out_dir, "init")
+    if env_init:
+        env.update(MASTER_ADDR="localhost", MASTER_PORT=str(free_port()),
+                   WORLD_SIZE=str(world))
+        init = "env"
+    procs = []
+    for r in range(world):
+        e = dict(env, RANK=str(r), LOCAL_RANK=str(r)) if env_init else env
+        procs.append(subprocess.Popen(
+            [sys.executable, worker, suite, str(r), str(world), init,
+             out_dir], env=e, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    return suite, world, out_dir, procs
+
+
+def finish_world(handle, timeout: float = 240.0) -> dict:
+    """Wait for a world of :func:`start_world` and return {case: [per-rank
+    result dicts]} ({case: traceback} where a rank raised).  A rank that
+    hangs past ``timeout`` seconds kills the world and fails the test."""
+    import subprocess
+
+    import pytest
+
+    suite, world, out_dir, procs = handle
+    logs = []
+    for p in procs:
+        try:
+            logs.append(p.communicate(timeout=timeout)[0])
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            pytest.fail(f"{suite}: a rank hung past {timeout} s")
+    names = sorted({f.rsplit("_r", 1)[0] for f in os.listdir(out_dir)
+                    if f.endswith((".npz", ".err")) and "_r" in f})
+    out = {}
+    for name in names:
+        errs = [os.path.join(out_dir, f"{name}_r{r}.err") for r in range(world)]
+        errs = [open(e).read() for e in errs if os.path.exists(e)]
+        if errs:
+            out[name] = errs[0]
+            continue
+        out[name] = []
+        for r in range(world):
+            with np.load(os.path.join(out_dir, f"{name}_r{r}.npz")) as z:
+                out[name].append({k: z[k] for k in z.files})
+    for p, log in zip(procs, logs):
+        if p.returncode != 0 and not any(isinstance(v, str)
+                                         for v in out.values()):
+            pytest.fail(f"{suite}: a rank exited {p.returncode}:\n"
+                        f"{log[-4000:]}")
+    return out
+
+
+def spawn_world(suite: str, world: int, out_dir, timeout: float = 240.0,
+                env_init: bool = False) -> dict:
+    """:func:`start_world` then :func:`finish_world`."""
+    return finish_world(start_world(suite, world, out_dir, env_init), timeout)
+
+
+def case(results: dict, name: str) -> list:
+    """The per-rank results of one case, or a failure with its traceback."""
+    import pytest
+    r = results[name]
+    if isinstance(r, str):
+        pytest.fail(f"case {name} raised on a rank:\n{r}")
+    return r
+
+
+def assert_ranks_agree(ranks: list, keys=("newton", "cg", "rnorm")):
+    """Every rank's counts and residual norms bit for bit equal."""
+    for k in keys:
+        for r in ranks[1:]:
+            np.testing.assert_array_equal(r[k], ranks[0][k], err_msg=k)
