@@ -175,6 +175,22 @@ Phases (any failure raises: exit code != 0 and no result line):
      steps, N within 1e-8 of scale of its; (e) the bench model for 4
      float64 steps on a world of one rank under NCCL on cuda:0 and under
      gloo: bitwise equal.  Every rank's counts and residual norms equal.
+ 20. dist_adjoint: the distributed adjoint (halo.py's recorded exchanges,
+     dist.localize, make_distributed_runner(control="inputs"),
+     solve/implicit.py's halo branch) on 2 gloo ranks spawned as in phase
+     19: phase 16's model (bench, float64, 1e-8 m/s recharge, lag off,
+     tight tolerances) for 3 hourly steps, each rank differentiating its
+     owned-row share of mean(N) with respect to inputs_scale and the
+     localized inputs field: (a) every rank's forward bitwise equal to
+     differentiable=False; (b) the rank-summed d mean(N)/d inputs_scale
+     within 1e-6 of the single-device adjoint on the same model and steps
+     and 2e-5 of a central difference of the distributed forward; (c) the
+     field's derivative along a seeded direction within 1e-4 of its
+     central difference; (d) bell_spmv on rank 0's last transposed
+     operator within phase 3's tolerances of its plain version; (e) per
+     rank the backward's launches (none through a plain version), the
+     backward's and forward's wall time, the collectives' share of each
+     (phase 19's clock) and peak memory.
 The line before the last is a JSON object with the kernels' numbers; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -1568,6 +1584,25 @@ ADJOINT_SOLVER = dict(adaptive_dt_levels=0, lag_operator=False, rtol=1e-12,
 FD_RTOL = 1e-5
 
 
+def adjoint_bench(dev):
+    """Phase 16's model: the bench model in float64 with the adjoint's
+    settings.  It has no meltwater input, so no loss would depend on it: a
+    uniform distributed recharge of 1e-8 m/s."""
+    import dataclasses
+
+    from shakti_tpu_torch.setups import setup_bench
+    md = setup_bench.initialize(days=1)
+    md.device, md.dtype = dev, torch.float64
+    md.inputs = np.full(md.x.size, 1e-8)
+    md.solver = dataclasses.replace(md.solver, **ADJOINT_SOLVER)
+    return md
+
+
+def adjoint_forcing(dts, s):
+    """The steps ``dts`` with the meltwater input scaled by the 0-d ``s``."""
+    return {"dt": dts, "inputs_scale": s.expand(dts.shape[0])}
+
+
 def phase_adjoint(dev, md=None, steps=6):
     """Phase 16: the differentiable transient at full width.  The bench
     model in float64, lag off, differentiable=True, ``steps`` hourly steps:
@@ -1581,16 +1616,11 @@ def phase_adjoint(dev, md=None, steps=6):
 
     from shakti_tpu_torch.ops import spmv_cuda
     from shakti_tpu_torch.physics import residual
-    from shakti_tpu_torch.setups import setup_bench
     from shakti_tpu_torch.solve import krylov
     from shakti_tpu_torch.solve import timestep as ts
     t_phase = time.perf_counter()
     if md is None:
-        md = setup_bench.initialize(days=1)
-        md.device, md.dtype = dev, torch.float64
-        # the bench model has no meltwater input, so neither loss would
-        # depend on it: a uniform distributed recharge of 1e-8 m/s
-        md.inputs = np.full(md.x.size, 1e-8)
+        md = adjoint_bench(dev)
     md.solver = dataclasses.replace(md.solver, **ADJOINT_SOLVER)
     mesh, static, state, cfg = md.freeze()
     dts = ts.timestep_sizes(md.timesteps, md.dtype, dev)[1:steps + 1]
@@ -1614,8 +1644,7 @@ def phase_adjoint(dev, md=None, steps=6):
     step = ts.make_step_fn(mesh, static, md.params, cfg)
 
     def loss_scale(s):
-        out, _ = ts.run_window(step, state, {"dt": dts,
-                                             "inputs_scale": s.expand(steps)})
+        out, _ = ts.run_window(step, state, adjoint_forcing(dts, s))
         return out.N.mean()
 
     # the backward's matvecs and adjoint solves, observed on their way
@@ -2522,7 +2551,126 @@ def _dist_steady(dev, rank, world, out):
                 launches=dict(spmv_cuda.launches))
 
 
-DIST_TASKS = {"bench": _dist_bench, "toy": _dist_toy, "steady": _dist_steady}
+# ---- phase 20: the distributed adjoint ----
+DIST_ADJ_STEPS = 3
+DIST_ADJ_GRAD_RTOL = 1e-6     # against phase 16's single-device adjoint
+DIST_ADJ_FD_RTOL = 2e-5       # the scalar gradient against its FD
+DIST_ADJ_DIR_RTOL = 1e-4      # the field's directional derivative, FD
+
+
+def _dist_adjoint(dev, rank, world, out):
+    """Phase 20 on one rank: phase 16's model for DIST_ADJ_STEPS hourly
+    steps through make_distributed_runner(control="inputs"), the rank's
+    partial mean(N) differentiated with respect to inputs_scale and the
+    localized inputs field at once; the forward against
+    differentiable=False, central differences of the distributed forward,
+    the backward's launches (none through a plain version), times,
+    collectives and peak memory; rank 0 holds bell_spmv against its plain
+    version on its last transposed operator."""
+    import dataclasses
+
+    from shakti_tpu_torch.ops import spmv_cuda
+    from shakti_tpu_torch.parallel import dist as pdist
+    from shakti_tpu_torch.solve import krylov
+    from shakti_tpu_torch.solve.timestep import timestep_sizes
+
+    def build(differentiable, control=None):
+        md = adjoint_bench(dev)
+        md.solver = dataclasses.replace(md.solver,
+                                        differentiable=differentiable)
+        md.distributed = True
+        return (md, *pdist.make_distributed_runner(md, device=dev,
+                                                    control=control))
+
+    md, runner0, st00, _ = build(False)
+    n = md.x.size
+    dts = timestep_sizes(md.timesteps, md.dtype, dev)[1:DIST_ADJ_STEPS + 1]
+    one = torch.tensor(1.0, dtype=md.dtype, device=dev)
+    t0 = time.perf_counter()
+    plain, _ = runner0(st00, adjoint_forcing(dts, one))
+    t_plain = sync_s(dev, t0)
+    md, runner, st0, plan = build(True, "inputs")
+    halo = plan["mesh"].halo
+    own = halo.owned_mask
+    base = md.freeze("cpu", distributed=True)[1].inputs.to(dev)
+    s = one.clone().requires_grad_(True)
+    f = base.clone().requires_grad_(True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with collective_clock(dev) as c_fwd:
+        t0 = time.perf_counter()
+        o, d = runner(pdist.localize(plan, f), st0, adjoint_forcing(dts, s))
+        part = (o.N * own).sum() / n
+        t_fwd = sync_s(dev, t0)
+    same = {k: bitwise_equal(getattr(o, k), getattr(plain, k))
+            for k in ("N", "b", "q", "melt")}
+    cg, real_cg = [], krylov.SOLVERS["cg"]
+
+    def cg_spy(*a, **k):
+        x, info = real_cg(*a, **k)
+        cg.append(info["iters"])
+        return x, info
+
+    spmv_cuda.reset_launches()
+    krylov.SOLVERS["cg"] = cg_spy
+    try:
+        with counted_plain() as plain_calls, \
+                last_operator("bell_operator_fn") as last, \
+                collective_clock(dev) as c_bwd:
+            t0 = time.perf_counter()
+            part.backward()
+            t_bwd = sync_s(dev, t0)
+    finally:
+        krylov.SOLVERS["cg"] = real_cg
+    launches = dict(spmv_cuda.launches)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    g_s = halo.allsum(s.grad)
+    g_f = halo.allsum(f.grad)
+    v = torch.as_tensor(np.random.default_rng(7).normal(size=n),
+                        dtype=md.dtype, device=dev)
+    v = v / torch.linalg.vector_norm(v)
+
+    def loss(sv, field):
+        with torch.no_grad():
+            o_, _ = runner(pdist.localize(plan, field), st0,
+                           adjoint_forcing(dts, one * sv))
+            return halo.allsum((o_.N * own).sum() / n).item()
+
+    h = 1e-5
+    fd_s = (loss(1 + h, base) - loss(1 - h, base)) / (2 * h)
+    hf = 1e-6 * float(torch.linalg.vector_norm(base))
+    fd_f = (loss(1.0, base + hf * v) - loss(1.0, base - hf * v)) / (2 * hf)
+    r = dict(forward_equal=same, newton=d["newton_iters"].tolist(),
+             cg=d["cg_iters"].tolist(), adjoint_cg=cg, L=plan["L"],
+             omax=plan["omax"], format=plan["format"],
+             precond=plan["cfg"].precond, loss=part.item(),
+             grad_scale=g_s.item(), grad_scale_rank=s.grad.item(),
+             fd_scale=fd_s, grad_dir=float(torch.dot(g_f, v)), fd_dir=fd_f,
+             launches_backward=launches, plain_calls_backward=dict(plain_calls),
+             plain_forward_s=t_plain, forward_s=t_fwd, backward_s=t_bwd,
+             profile_forward=c_fwd.read(t_fwd),
+             profile_backward=c_bwd.read(t_bwd), peak_gb=peak)
+    if rank == 0:
+        vals, lmesh, dirichlet = last.args[:3]
+        rng = np.random.default_rng(20)
+        x = torch.as_tensor(rng.standard_normal(lmesh.n_nodes), device=dev,
+                            dtype=vals.dtype)
+        extra = torch.as_tensor(rng.random(lmesh.n_nodes)
+                                * ~dirichlet.cpu().numpy(), device=dev,
+                                dtype=vals.dtype)
+        _, rtol, atol = next(t for t in TOLS if t[0] == vals.dtype)
+        r["kernel_check"] = {
+            "rows": lmesh.n_nodes,
+            "product": check_operator(
+                "dist adjoint rank 0 A^T product", vals, lmesh, x, None,
+                None, rtol, atol, "bell_spmv"),
+            "epilogue": check_operator(
+                "dist adjoint rank 0 A^T epilogue", vals, lmesh, x,
+                dirichlet, extra, rtol, atol, "bell_spmv")}
+    return r
+
+
+DIST_TASKS = {"bench": _dist_bench, "toy": _dist_toy, "steady": _dist_steady,
+              "adjoint": _dist_adjoint}
 
 
 def dist_rank(task, rank, world, init, out):
@@ -2774,6 +2922,81 @@ def phase_dist(dev, tmp, ref=None, mg13=None, main_dir=None, slab=None):
     return res
 
 
+def phase_dist_adjoint(dev, tmp):
+    """Phase 20: the distributed adjoint on 2 gloo ranks (_dist_adjoint)
+    against phase 16's single-device adjoint on the same model and steps:
+    (a) every rank's forward bitwise equal to differentiable=False; (b) the
+    rank-summed d mean(N)/d inputs_scale within DIST_ADJ_GRAD_RTOL of the
+    single-device gradient and DIST_ADJ_FD_RTOL of a central difference,
+    the same on every rank; (c) the inputs field's directional derivative
+    within DIST_ADJ_DIR_RTOL of its central difference; (d) bell_spmv on
+    rank 0's last transposed operator within phase 3's tolerances; (e)
+    per rank the backward's launches (none through a plain version),
+    backward and forward wall time, the collectives' share, peak memory."""
+    from shakti_tpu_torch.solve import timestep as ts
+    t_phase = time.perf_counter()
+    md = adjoint_bench(dev)
+    mesh, static, state, cfg = md.freeze()
+    dts = ts.timestep_sizes(md.timesteps, md.dtype, dev)[1:DIST_ADJ_STEPS + 1]
+    s = torch.tensor(1.0, dtype=md.dtype, device=dev, requires_grad=True)
+    t0 = time.perf_counter()
+    o, _ = ts.run_window(ts.make_step_fn(mesh, static, md.params, cfg), state,
+                         adjoint_forcing(dts, s))
+    o.N.mean().backward()
+    single = dict(grad_scale=s.grad.item(), s=sync_s(dev, t0))
+    del mesh, static, state, o
+    ranks, wall = _finish_world(_spawn_world("adjoint", 2, tmp))
+    r0 = ranks[0]
+    g = r0["grad_scale"]
+    res = dict(
+        card=nvidia_smi_line(), wall_s=wall, single=single,
+        forward_equal=[r["forward_equal"] for r in ranks],
+        grad_scale=g, fd_scale=r0["fd_scale"],
+        rel_single=abs(g - single["grad_scale"]) / abs(single["grad_scale"]),
+        rel_fd=abs(g - r0["fd_scale"]) / abs(r0["fd_scale"]),
+        grad_dir=r0["grad_dir"], fd_dir=r0["fd_dir"],
+        rel_dir=abs(r0["grad_dir"] - r0["fd_dir"]) / abs(r0["fd_dir"]),
+        newton=r0["newton"], cg=r0["cg"], adjoint_cg=r0["adjoint_cg"],
+        precond=r0["precond"], format=r0["format"],
+        kernel_check=r0["kernel_check"],
+        per_rank=[dict(rank=i, L=r["L"], omax=r["omax"],
+                       grad_scale_rank=r["grad_scale_rank"],
+                       launches_backward=r["launches_backward"],
+                       plain_calls_backward=sum(
+                           r["plain_calls_backward"].values()),
+                       plain_forward_s=r["plain_forward_s"],
+                       forward_s=r["forward_s"], backward_s=r["backward_s"],
+                       backward_over_forward=r["backward_s"] / r["forward_s"],
+                       collective_share_forward=r["profile_forward"][
+                           "collective_share"],
+                       collective_share_backward=r["profile_backward"][
+                           "collective_share"],
+                       profile_forward=r["profile_forward"],
+                       profile_backward=r["profile_backward"],
+                       peak_gb=r["peak_gb"])
+                  for i, r in enumerate(ranks)])
+    log("  (a)-(e) dist adjoint on 2 ranks: " + json.dumps(res))
+    bad = []
+    if not all(all(fe.values()) for fe in res["forward_equal"]):
+        bad.append("(a) differentiable=True changed the forward")
+    if any(r[k] != r0[k] for r in ranks[1:]
+           for k in ("grad_scale", "grad_dir", "newton", "cg", "adjoint_cg")):
+        bad.append("the ranks' gradients or counts differ")
+    if res["rel_single"] > DIST_ADJ_GRAD_RTOL or res["rel_fd"] > DIST_ADJ_FD_RTOL:
+        bad.append("(b) the scalar gradient")
+    if res["rel_dir"] > DIST_ADJ_DIR_RTOL or r0["fd_dir"] == 0.0:
+        bad.append("(c) the field's directional derivative")
+    if any(p["launches_backward"]["bell_spmv"] <= 0
+           or p["plain_calls_backward"] > 0 for p in res["per_rank"]):
+        bad.append("(e) a backward matvec not through bell_spmv")
+    if bad:
+        raise RuntimeError(f"phase 20: {bad}: {res}")
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 20: {res['phase_s']:.1f} s (2 ranks time-sliced on one "
+        f"{res['card']})")
+    return res
+
+
 # the kernels line: "ms", "plain_ms" and "library_ms" are times per call
 # between CUDA events (host work included), as "ms" has been since the first
 # kernel; the *_device_ms are torch.profiler's device times
@@ -2788,7 +3011,7 @@ BATCHED_LINE_KEYS = ("M", "max_abs_err", "ms", "device_ms", "singles_ms",
 
 PHASES = ("kernel", "goldens", "main", "ell", "scale", "formats", "resume",
           "bootstrap", "bicgstab", "mg", "steady", "polish", "dist", "adjoint",
-          "ensemble", "cooke2")
+          "ensemble", "cooke2", "dist_adjoint")
 
 
 def main(argv=None):
@@ -2837,7 +3060,7 @@ def main(argv=None):
         log(f"[{name}] (t = {time.perf_counter() - t_start:.1f} s)")
 
     kres = mres = sres = eres = gres = stres = pres = slab = None
-    ares = enres = cres = dres = fres = ref = main_dir = None
+    ares = enres = cres = dres = fres = xres = ref = main_dir = None
     # ---- 3. bell_spmv vs plain at the bench shapes ----
     from shakti_tpu_torch.setups import setup_bench
     if "kernel" in phases:
@@ -2969,6 +3192,12 @@ def main(argv=None):
         stamp("cooke2: basin mesh, 10 days f32, battery, f32 vs f64")
         with tempfile.TemporaryDirectory() as tmp:
             cres = phase_cooke2(dev, tmp)
+    # ---- 20. the distributed adjoint ----
+    if "dist_adjoint" in phases:
+        stamp("dist_adjoint: bench model, float64, 3 steps, 2 ranks, "
+              "gradients vs single device and FD")
+        with tempfile.TemporaryDirectory() as tmp:
+            xres = phase_dist_adjoint(dev, tmp)
     stamp("done")
 
     if phases != list(PHASES):
@@ -2994,6 +3223,9 @@ def main(argv=None):
                              dres["a_two_level"]["per_rank"])
         + sum(dres["b_run"]["launches_per_rank"]),
         "max_abs_err_dist": dres["a_two_level"]["kernel_check"],
+        "launches_dist_adjoint_backward": sum(
+            p["launches_backward"]["bell_spmv"] for p in xres["per_rank"]),
+        "max_abs_err_dist_adjoint": xres["kernel_check"],
         "W": kres["W"],
         **{k: f32[k] for k in LINE_KEYS}, "bound_by": f32["bound_by"],
         "float64": {k: kres["float64"][k] for k in LINE_KEYS}}, {

@@ -24,7 +24,8 @@ its node-sharded share (parallel/dist.py) through the same protocol.  All
 file IO goes through rank 0; every rank reaches every collective (a
 group's save rows are its ranks' owned rows, gathered once per group; a
 checkpoint gathers the state).  Rank 0's verdict on a pre-existing results
-directory is broadcast, so every rank aborts.  A resume reads the global
+directory is broadcast, so every rank aborts, and a run returns on every
+rank only once rank 0 has written its files.  A resume reads the global
 checkpoint on every rank (a shared filesystem) and localizes it; the f64
 bootstrap runs single-device only, as in the JAX package.
 """
@@ -434,6 +435,12 @@ def solve(md, *, resume: bool = False, progress: bool = True):
                 "n_nodes": int(n_nodes),
                 "resumed_from": start_step,
             }, f, indent=1)
+    if dist_on and io_on:
+        # every rank returns once rank 0 has written the results: a rank
+        # that returned earlier and resumed from the same directory would
+        # find no checkpoint (or an older one), take another branch than
+        # rank 0, and the two would wait in different collectives
+        torch.distributed.barrier()
 
     return {
         "state": state,

@@ -13,6 +13,27 @@ the TPU's rule on every device; ``md.operator`` overrides); the ranks'
 operators need no common shape.  Every rank holds the whole model on the
 host (the setup runs on every rank, like the reference's per-rank
 initialize()) and keeps its share on its device.
+
+Gradients (``NewtonConfig(differentiable=True)``): the SPMD contract.
+Every rank builds the same autograd graph (the same code, the same host
+decisions), whose halo exchanges are recorded with their transposes
+(parallel/halo.py) and whose implicit solves take the distributed adjoint
+(solve/implicit.py).  So:
+  * each rank backpropagates its OWN owned-row partial loss, e.g.
+    ``(N * plan["mesh"].halo.owned_mask).sum() / n`` for the mean of N,
+    and every rank calls ``backward`` in lockstep, so that the collectives
+    of the backward meet;
+  * the gradient of an input every rank holds (a scalar such as a step's
+    ``inputs_scale``, or the global (n,) field given to :func:`localize`)
+    is the SUM of the ranks' gradients, taken with
+    ``plan["mesh"].halo.allsum`` (rank order: the same bits on every
+    rank).
+This is the transpose the JAX package derives under ``shard_map``.  The
+distributed field inversion: ``runner, st0, plan =
+make_distributed_runner(md, control="inputs")``, then on every rank
+``f = f_global.requires_grad_()``, ``state, _ = runner(localize(plan, f),
+st0, forcing)``, the rank's partial loss, ``backward()``, and
+``halo.allsum(f.grad)``.
 """
 
 from __future__ import annotations
@@ -23,6 +44,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from shakti_tpu_torch.fem.ops import gather_plan, plan_sum
 from shakti_tpu_torch.mesh.mesh import build_mesh
 from shakti_tpu_torch.parallel import halo as H
 from shakti_tpu_torch.solve.mg import build_hierarchy, localize_hierarchy
@@ -64,8 +86,10 @@ def build_distributed(md, group=None, device=None):
     share of the global hierarchy), static fields and initial state are
     built on ``device`` (default md.device).  ``plan`` is
     :func:`halo.build_halo`'s host plan plus: rank, coarse_m, mg_plan,
-    format and block (this rank's operator), and group (the owned-slot
-    stitch of grouped save rows: omax, own_p, own_slot)."""
+    format and block (this rank's operator), glob_ids and live_mask (L,)
+    (the global node of each local slot, dead slots aliasing node 0 and
+    masked: :func:`localize`'s map), and group (the owned-slot stitch of
+    grouped save rows: omax, own_p, own_slot)."""
     # the USER's coarse_block, before freeze resolves the None sentinel
     user_blk = md.solver.coarse_block
     dev = resolve_device(md.device if device is None else device)
@@ -97,7 +121,12 @@ def build_distributed(md, group=None, device=None):
     omax = int(plan["omax"])
     own_p = (np.searchsorted(plan["starts"], np.arange(n), side="right")
              - 1).astype(np.int64)
+    # the global node of every local slot (dead slots alias node 0, masked):
+    # the map :func:`localize` differentiates
+    glob_ids = H.localize_rank(plan, np.arange(n, dtype=np.int64), rank)
+    live = H.localize_rank(plan, np.ones(n, dtype=bool), rank)
     plan.update(rank=rank, coarse_m=coarse_m, mg_plan=mg_plan, format=fmt, block=B,
+                glob_ids=glob_ids, live_mask=live,
                 group={"omax": omax, "own_p": own_p,
                        "own_slot": np.arange(n) - plan["starts"][own_p]})
 
@@ -141,17 +170,58 @@ def build_distributed(md, group=None, device=None):
     return lmesh, lstatic, state0, cfg, plan
 
 
-def make_distributed_runner(md, group=None, device=None):
+# the nodal static fields a runner can take as its first argument (those
+# without freeze-time derived precomputes: z_b and z_s make gb0)
+CONTROLS = ("G", "inputs", "storage")
+
+
+def localize(plan, f_global):
+    """This rank's (L,) slots of a global solver-order nodal field
+    ``f_global`` (n,): ``f_global[glob_ids] * live_mask``, differentiable:
+    the backward adds each live slot's cotangent into its global node over
+    a host gather plan (fem/ops.gather_plan, a fixed-order sum), and the sum
+    over the ranks completes it (the module docstring)."""
+    dev = f_global.device
+    ids = torch.as_tensor(plan["glob_ids"], device=dev)
+    live = torch.as_tensor(plan["live_mask"], device=dev)
+
+    def bwd(g):
+        slots, idx = gather_plan(plan["glob_ids"][plan["live_mask"]])
+        return (plan_sum(g[live], torch.as_tensor(slots, device=dev),
+                         torch.as_tensor(idx, device=dev), f_global.shape[0]),)
+
+    return H.linear(lambda f: f[ids] * live.to(f.dtype), bwd, f_global)
+
+
+def make_distributed_runner(md, group=None, device=None, control=None):
     """(runner, state0, plan): runner(state, forcing) -> (state, diags), this
     rank's share of the transient (run_window over the rank's step); every
     rank calls it with the same forcing and gets the same diagnostics.
     ``plan`` (:func:`build_distributed`) also holds this rank's mesh,
-    static fields, config and step ('mesh', 'static', 'cfg', 'step')."""
+    static fields, config and step ('mesh', 'static', 'cfg', 'step').
+
+    ``control``: one of :data:`CONTROLS`, the nodal static field that the
+    runner takes as an argument instead of the frozen one:
+    runner(field_local, state, forcing), ``field_local`` this rank's (L,)
+    slots (:func:`localize`).  The step is then built inside each call, so
+    that with cfg.differentiable a gradient reaches the field (the field
+    inversion of the module docstring)."""
+    if control is not None and control not in CONTROLS:
+        raise ValueError(f"control must be one of {set(CONTROLS)}, "
+                         f"got '{control}'")
     mesh, static, state0, cfg, plan = build_distributed(md, group, device)
     step = make_step_fn(mesh, static, md.params, cfg)
     plan.update(mesh=mesh, static=static, cfg=cfg, step=step)
-    return (lambda state, forcing: run_window(step, state, forcing)), \
-        state0, plan
+    if control is None:
+        return (lambda state, forcing: run_window(step, state, forcing)), \
+            state0, plan
+
+    def runner(field_local, state, forcing):
+        st = dataclasses.replace(static, **{control: field_local})
+        return run_window(make_step_fn(mesh, st, md.params, cfg), state,
+                          forcing)
+
+    return runner, state0, plan
 
 
 def make_distributed_steady_runner(md, group=None, device=None,

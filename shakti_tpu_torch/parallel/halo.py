@@ -16,6 +16,17 @@ idiom) where the JAX package runs one program over P devices:
       - ``accumulate``: ghost -> owner add, then push;
   * reductions mask the ghosts and sum over the ranks.
 
+Autograd.  Both exchanges are linear, and each is recorded as one
+``torch.autograd.Function`` (:func:`linear`) whose backward is its
+transpose, the exchange in the other direction: ``push``'s transpose adds
+each ghost's cotangent into its owned slot and zeroes the ghost slot, and
+``accumulate``'s is ``accumulate`` itself.  The backward sums in the same
+fixed order as the forward (the host gather plan), so it gives the same
+bits on every run.  When grad mode is off or nothing requires grad, the
+exchanges run without a Function.  The reductions have no transpose: one
+given a tensor that requires grad under grad mode raises, where
+``all_gather`` and ``all_reduce`` would silently drop its gradient.
+
 The exchange plan keeps no pads: where the JAX package pads every pair of
 devices to the largest (its (P, H) arrays), ``all_to_all_single`` takes each
 rank's ``input_split_sizes`` / ``output_split_sizes``, so a rank sends and
@@ -52,6 +63,39 @@ from shakti_tpu_torch.fem.ops import fixed_sum, gather_plan
 TIMEOUT = datetime.timedelta(seconds=300)
 
 
+class _Linear(torch.autograd.Function):
+    """y = fwd(*xs), a linear map, whose backward is ``bwd(g)``: one
+    cotangent per x."""
+
+    @staticmethod
+    def forward(ctx, fwd, bwd, *xs):
+        ctx.bwd = bwd
+        return fwd(*xs)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None, None, *ctx.bwd(g))
+
+
+def linear(fwd, bwd, *xs):
+    """``fwd(*xs)`` for a linear ``fwd`` whose transpose is ``bwd`` (g -> a
+    tuple of one cotangent per x): recorded for autograd as one Function
+    when grad mode is on and an x requires grad, else ``fwd(*xs)`` alone."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
+        return _Linear.apply(fwd, bwd, *xs)
+    return fwd(*xs)
+
+
+def _no_transpose(op, x):
+    """Raise where the collective ``op`` would drop the gradient of ``x``."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise RuntimeError(
+            f"{op} has no transpose, and its input requires grad: the "
+            "gradient would be dropped.  Reduce the detached value (a "
+            "reduction that steers a host decision), or run it under "
+            "torch.no_grad()")
+
+
 class Collectives:
     """The reductions of one process group (default: the world), with the
     same bits on every rank.  Serves the cell-sharded step (``mesh.paxis``,
@@ -65,6 +109,7 @@ class Collectives:
 
     def gather(self, x):
         """Every rank's ``x`` (equal shapes), in rank order: a list."""
+        _no_transpose("all_gather", x)
         x = x.contiguous()
         outs = [torch.empty_like(x) for _ in range(self.world)]
         dist.all_gather(outs, x, group=self.group)
@@ -76,6 +121,7 @@ class Collectives:
         return fixed_sum(torch.stack(self.gather(x)), 0)
 
     def _reduce(self, x, op):
+        _no_transpose("all_reduce", x)
         y = x.clone()
         dist.all_reduce(y, op=op, group=self.group)
         return y
@@ -92,7 +138,9 @@ class Collectives:
         return self.min(flag.to(torch.int32)) > 0
 
     def all_to_all(self, buf, out_counts, in_counts):
-        """``all_to_all_single`` along dim 0 with the split sizes given."""
+        """``all_to_all_single`` along dim 0 with the split sizes given
+        (not recorded by autograd: the exchanges below are)."""
+        _no_transpose("all_to_all_single", buf)
         buf = buf.contiguous()
         out_shape = (int(sum(out_counts)),) + tuple(buf.shape[1:])
         if self.world == 1:
@@ -155,27 +203,12 @@ class Halo(Collectives):
     # ---------------------------------------------------------- exchanges
     def push(self, x):
         """Owner -> ghost copy (the reference's scatter_forward)."""
-        recv = self.all_to_all(x[self.send], self.recv_counts,
-                               self.send_counts)
-        y = x.clone()
-        y[self.recv] = recv
-        return y
-
-    def _add_back(self, x, back):
-        """x with the received ghost contributions ``back`` added to their
-        owned slots in plan order, then the ghosts (and the dump) zeroed."""
-        y = x.clone()
-        if self.acc_slots.numel():
-            ext = torch.cat([x, back, x.new_zeros((1,) + tuple(x.shape[1:]))])
-            y[self.acc_slots] = fixed_sum(ext[self.acc_idx], 1)
-        return y * self._mask(y)
+        return linear(self._push, lambda g: (self._push_t(g),), x)
 
     def accumulate(self, x):
         """Ghost contributions -> owner add, then fresh owner values into
-        the ghost copies (the assembly's completion)."""
-        back = self.all_to_all(x[self.recv], self.send_counts,
-                               self.recv_counts)
-        return self.push(self._add_back(x, back))
+        the ghost copies (the assembly's completion).  Its own transpose."""
+        return linear(self._accumulate, lambda g: (self._accumulate(g),), x)
 
     def accumulate_split(self, y_lo, y_hi):
         """accumulate(cat(y_lo, y_hi)) with the ghost return depending on
@@ -185,9 +218,55 @@ class Halo(Collectives):
         if split > self.omax:
             raise ValueError(f"split {split} past the owned slots "
                              f"({self.omax})")
+
+        def bwd(g):
+            g = self._accumulate(g)
+            return g[:split], g[split:]
+
+        return linear(self._accumulate_split, bwd, y_lo, y_hi)
+
+    def _push(self, x):
+        recv = self.all_to_all(x[self.send], self.recv_counts,
+                               self.send_counts)
+        y = x.clone()
+        y[self.recv] = recv
+        return y
+
+    def _push_t(self, g):
+        """The transpose of push: each ghost slot's value added into its
+        owned slot on its owner (the ghost return), the ghost slots zero;
+        the owned slots, the dead slots and the dump pass."""
+        back = self.all_to_all(g[self.recv], self.send_counts,
+                               self.recv_counts)
+        y = g.clone()
+        y[self.recv] = 0.0
+        return self._sum_back(y, back)
+
+    def _sum_back(self, x, back):
+        """x with the received ghost contributions ``back`` added to their
+        owned slots in plan order: the slot's own value, then the received
+        ones in (source rank, position) order."""
+        y = x.clone()
+        if self.acc_slots.numel():
+            ext = torch.cat([x, back, x.new_zeros((1,) + tuple(x.shape[1:]))])
+            y[self.acc_slots] = fixed_sum(ext[self.acc_idx], 1)
+        return y
+
+    def _add_back(self, x, back):
+        """:meth:`_sum_back`, then the ghosts (and the dump) zeroed."""
+        y = self._sum_back(x, back)
+        return y * self._mask(y)
+
+    def _accumulate(self, x):
+        back = self.all_to_all(x[self.recv], self.send_counts,
+                               self.recv_counts)
+        return self._push(self._add_back(x, back))
+
+    def _accumulate_split(self, y_lo, y_hi):
+        split = y_lo.shape[0]
         back = self.all_to_all(y_hi[self.recv - split], self.send_counts,
                                self.recv_counts)
-        return self.push(self._add_back(torch.cat([y_lo, y_hi]), back))
+        return self._push(self._add_back(torch.cat([y_lo, y_hi]), back))
 
     # ----------------------------------------------------------- reductions
     def dot(self, a, b):

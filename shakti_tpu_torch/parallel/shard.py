@@ -40,7 +40,16 @@ def make_parallel_step_fn(mesh: Mesh, static, params, cfg, group=None):
     over the ranks of ``group`` (default: the world): the same signature and
     results (up to the order of the sums over the ranks), on every rank.
     ``mesh``/``static``: the global problem (api/model.freeze), on this
-    rank's device."""
+    rank's device.  Takes differentiable=False: the JAX package has no
+    differentiable cell-sharded step (its shard_map there keeps the vma
+    check, which drops custom_vjp cotangents, shakti_tpu/parallel/shard.py),
+    and the sum over the ranks that completes each assembly here has no
+    transpose (parallel/halo.Collectives).  The node-sharded runner
+    (parallel/dist.py) is the differentiable distributed path."""
+    if cfg.differentiable:
+        raise NotImplementedError(
+            "the cell-sharded step takes differentiable=False; use the "
+            "node-sharded runner (parallel/dist.make_distributed_runner)")
     # the rank's cells have no foldable operator structure: no operator carry
     cfg = dataclasses.replace(cfg, lag_operator=False)
     ids = rank_cells(mesh, dist.get_world_size(group), dist.get_rank(group))

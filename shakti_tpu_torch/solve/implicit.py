@@ -31,8 +31,21 @@ converge warns; with ``SHAKTI_ADJOINT_STRICT=1`` it also fills lambda with
 NaN, so that an optimizer cannot use the inaccurate gradient.
 
 Enable with ``NewtonConfig(differentiable=True)``; incompatible with
-``lag_operator``.  The distributed (halo) adjoint of the JAX package comes
-with the port of parallel/dist.py.
+``lag_operator``.
+
+On a rank's share of a node-sharded mesh (``mesh.halo``, parallel/dist.py)
+the same algebra runs on the [owned | ghosts | dump] slots with the JAX
+package's three adaptations: (1) the incoming cotangent holds the rank's
+partial contributions at owned AND ghost slots (the rank's cells read
+ghost copies of N*), so it is halo-accumulated into the global cotangent
+before the solve; (2) the adjoint Krylov solve takes the owned-slot dots
+and norm summed over the ranks, as the forward's does, so every rank
+takes the same decisions (and warns, or poisons, alike); (3) the residual
+whose VJP gives ``ct_pre`` is masked to OWNED rows: a ghost row repeats
+its owner's equation, and unmasked it would count each interface
+equation once per copy.  The VJP runs through the recorded halo
+exchanges of the assembly (parallel/halo.py), whose backward carries the
+cotangents of ghost copies to their owners.
 """
 
 from __future__ import annotations
@@ -84,7 +97,14 @@ class _ImplicitSolve(torch.autograd.Function):
         prob = ctx.prob
         N, *values = ctx.saved_tensors
         mesh, dirichlet, cfg = prob.mesh, prob.dirichlet, prob.cfg
+        halo = mesh.halo
+        reduce = {} if halo is None else dict(dot=halo.dot, norm=halo.norm,
+                                              dots=halo.dots)
         with torch.no_grad():
+            if halo is not None:
+                # the ranks' partial cotangents, owned and ghost slots,
+                # summed into the global one
+                ct_N = halo.accumulate(ct_N)
             # the exact adjoint operator: the element blocks transposed
             # before the fold (J^T = sum_c S_c J_c^T S_c^T), with the
             # forward solve's floor and preconditioner class
@@ -93,7 +113,8 @@ class _ImplicitSolve(torch.autograd.Function):
             matvec, minv = linear_operator(J_t, mesh, dirichlet, cfg)
             rhs = torch.where(dirichlet, 0.0, ct_N)
             lam, info = krylov.get_solver(cfg.krylov)(
-                matvec, rhs, minv, rtol=cfg.lin_rtol, maxiter=cfg.lin_maxiter)
+                matvec, rhs, minv, rtol=cfg.lin_rtol, maxiter=cfg.lin_maxiter,
+                **reduce)
         if not info["converged"]:
             warnings.warn(
                 f"adjoint Krylov solve unconverged (resnorm "
@@ -104,7 +125,8 @@ class _ImplicitSolve(torch.autograd.Function):
             if os.environ.get("SHAKTI_ADJOINT_STRICT", "0") == "1":
                 lam = torch.full_like(lam, float("nan"))
         # ct_pre = (dF/dpre)^T lambda, N held fixed; lambda vanishes on
-        # Dirichlet rows, so the row mask of F is immaterial
+        # Dirichlet rows, so the row mask of F is immaterial; on a rank,
+        # F's owned rows only
         need = ctx.needs_input_grad[3:]
         leaves = [v.detach().requires_grad_(w) for v, w in zip(values, need)]
         wanted = [v for v, w in zip(leaves, need) if w]
@@ -113,6 +135,8 @@ class _ImplicitSolve(torch.autograd.Function):
             with torch.enable_grad():
                 F = torch.where(dirichlet, 0.0, res.assemble_residual(
                     N, prob.pre(leaves), mesh, prob.params))
+                if halo is not None:
+                    F = F * halo.owned_mask
                 grads = iter(torch.autograd.grad(F, wanted, lam,
                                                  allow_unused=True))
         ct_pre = [next(grads) if w else None for w in need]

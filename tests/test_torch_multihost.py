@@ -6,6 +6,8 @@ LOCAL_RANK), in float64 on the 10x10 slab (8 steps, saves every 4):
 - api/run.solve with md.distributed: rank 0 writes the results files and
   holds the histories (rank 1 none), within 1e-8 of the single-process run;
 - per-window pulls (SHAKTI_RUN_GROUP=1) bitwise equal to grouped ones;
+- solve returning on every rank only once rank 0 has written its files
+  (rank 0's checkpoint writes held back a second);
 - 6 steps then --resume to 8 equal to the uninterrupted run;
 - seasonal forcing within 1e-8 of the single-process run;
 - a resume from the checkpoint.npz of the JAX package's distributed solve
@@ -95,6 +97,11 @@ def test_grouped_dispatch_bitwise(world):
     a, b = _ranks(world, "solve"), _ranks(world, "group")
     for k in KEYS:
         np.testing.assert_array_equal(a[f"hist_{k}"], b[f"hist_{k}"])
+
+
+def test_solve_returns_once_rank0_has_written(world):
+    for r in case(world[0], "written"):
+        assert int(r["next_step"]) == 8
 
 
 def test_resume_equals_uninterrupted(world):

@@ -15,9 +15,12 @@ tests/_mp_worker.py.
 
 import dataclasses
 import datetime
+import faulthandler
 import os
+import signal
 import sys
 import traceback
+import warnings
 
 import numpy as np
 import torch
@@ -233,6 +236,28 @@ def case_group(rank, P, out_dir):
         del os.environ["SHAKTI_RUN_GROUP"]
 
 
+def case_written(rank, P, out_dir):
+    """api/run.solve returns on every rank only once rank 0 has written its
+    files: rank 0's checkpoint writes are held back a second, and every
+    rank then reads the final checkpoint."""
+    import time
+
+    from shakti_tpu_torch.io import checkpoint as ckpt
+    real = ckpt.save_state
+
+    def slow(*a, **k):
+        time.sleep(1.0)
+        return real(*a, **k)
+
+    ckpt.save_state = slow
+    try:
+        _solve_md(out_dir, "res_written").solve(progress=False)
+    finally:
+        ckpt.save_state = real
+    with np.load(os.path.join(out_dir, "res_written", "checkpoint.npz")) as z:
+        return {"next_step": z["next_step"]}
+
+
 def case_resume(rank, P, out_dir):
     """6 of 8 steps, then --resume to the end."""
     md = _solve_md(out_dir, "res_resume")
@@ -282,16 +307,245 @@ def case_modules(rank, P):
     return {"bad": np.array(bad, dtype=str)}
 
 
+# ------------------------------------------- the distributed adjoint suites
+# tests/test_adjoint.py's _md: tight solves, so that the IFT premise
+# F(N*) = 0 holds to roundoff and finite differences are clean
+ADJ = dict(adaptive_dt_levels=0, lag_operator=False, rtol=1e-12, atol=1e-13,
+           lin_rtol=1e-12, differentiable=True)
+
+
+def adj_md(steps=5, **solver):
+    """The 12x12 slab for ``steps`` hourly steps with a 0.01 m gap, f64."""
+    md = slab(12, days=steps / 24.0, nt_per_day=24)
+    md.b_init = np.full(md.x.size, 0.01)
+    md.solver = dataclasses.replace(md.solver, **dict(ADJ, **solver))
+    md.distributed = True
+    return md
+
+
+def part_mean(plan, N, n):
+    """This rank's owned-row share of mean(N)."""
+    return (N * plan["mesh"].halo.owned_mask).sum() / n
+
+
+def with_scale(dts, s):
+    return {"dt": dts, "inputs_scale": s.expand(dts.shape[0])}
+
+
+def case_dot(rank, P):
+    """Dot-product tests of the exchanges' transposes on the 12x12 slab:
+    per rank <op(x), y> and <x, op^T(y)> (op^T by autograd, the Functions'
+    backward), summed over the ranks by the test; and the recorded
+    forward bitwise equal to the unrecorded one."""
+    from shakti_tpu_torch.parallel.dist import build_distributed, localize
+    md = slab(12)
+    md.distributed = True
+    mesh, _, _, _, plan = build_distributed(md)
+    h, L, om, n = mesh.halo, plan["L"], plan["omax"], md.x.size
+    rng = np.random.default_rng(100 + rank)
+    out = {}
+
+    def check(name, op, shape):
+        x = torch.as_tensor(rng.normal(size=shape))
+        y = torch.as_tensor(rng.normal(size=shape))
+        xg = x.clone().requires_grad_(True)
+        yx = op(xg)
+        (gx,) = torch.autograd.grad(yx, xg, y)
+        out[f"{name}_fwd"] = (op(x) * y).sum()
+        out[f"{name}_adj"] = (x * gx).sum()
+        out[f"{name}_same"] = torch.equal(yx.detach(), op(x))
+
+    check("push", h.push, (L,))
+    check("push2", h.push, (L, 2))
+    check("accumulate", h.accumulate, (L,))
+    check("accumulate3", h.accumulate, (L, 3))
+    x = torch.as_tensor(rng.normal(size=L))
+    y = torch.as_tensor(rng.normal(size=L))
+    lo = x[:om].clone().requires_grad_(True)
+    hi = x[om:].clone().requires_grad_(True)
+    ys = h.accumulate_split(lo, hi)
+    glo, ghi = torch.autograd.grad(ys, (lo, hi), y)
+    out["split_fwd"] = (h.accumulate_split(x[:om], x[om:]) * y).sum()
+    out["split_adj"] = (x[:om] * glo).sum() + (x[om:] * ghi).sum()
+    out["split_same"] = torch.equal(ys.detach(), h.accumulate(x))
+    # localize: a global f, the same on every rank; the test sums the
+    # ranks' gradients, as the SPMD contract sums a replicated input's
+    f = torch.as_tensor(np.random.default_rng(7).normal(size=n))
+    y = torch.as_tensor(rng.normal(size=L))
+    fg = f.clone().requires_grad_(True)
+    loc = localize(plan, fg)
+    (g,) = torch.autograd.grad(loc, fg, y)
+    out.update(localize_fwd=(loc.detach() * y).sum(), localize_grad=g, f=f,
+               localize_same=torch.equal(
+                   loc.detach(), torch.as_tensor(H.localize_rank(
+                       plan, f.numpy(), rank))))
+    return out
+
+
+def case_grad_scale(rank, P):
+    """d mean(N)/d inputs_scale through 5 steps (tests/test_adjoint.py:116):
+    the rank's gradient of its partial loss and the rank sum; a central
+    difference of the distributed forward; at P = 2 also the forward with
+    differentiable=True (graph recorded) against False."""
+    md = adj_md()
+    n = md.x.size
+    dts = timestep_sizes(md.timesteps)
+    runner, st0, plan = pdist.make_distributed_runner(md)
+    halo = plan["mesh"].halo
+    s = torch.tensor(1.0, dtype=F64, requires_grad=True)
+    out, d = runner(st0, with_scale(dts, s))
+    part = part_mean(plan, out.N, n)
+    part.backward()
+
+    def loss(v):
+        with torch.no_grad():
+            o, _ = runner(st0, with_scale(dts, torch.tensor(v, dtype=F64)))
+            return halo.allsum(part_mean(plan, o.N, n))
+
+    h = 1e-5
+    res = {"loss": halo.allsum(part.detach()), "g_rank": s.grad,
+           "g": halo.allsum(s.grad), "fd": (loss(1 + h) - loss(1 - h)) / (2 * h),
+           "precond": plan["cfg"].precond, "format": plan["format"]}
+    res.update(counts(d))
+    if P == 2:
+        r0, st00, _ = pdist.make_distributed_runner(
+            adj_md(differentiable=False))
+        plain, _ = r0(st00, with_scale(dts, torch.tensor(1.0, dtype=F64)))
+        res.update(same_N=torch.equal(out.N, plain.N),
+                   same_b=torch.equal(out.b, plain.b))
+    return res
+
+
+def case_field(rank, P):
+    """The (n,) gradient with respect to the inputs field through
+    make_distributed_runner(control="inputs") and localize
+    (tests/test_adjoint.py:192), in user order, and a seeded directional
+    central difference."""
+    md = adj_md()
+    n = md.x.size
+    dts = timestep_sizes(md.timesteps)
+    runner, st0, plan = pdist.make_distributed_runner(md, control="inputs")
+    halo = plan["mesh"].halo
+    _, static, _, _ = md.freeze("cpu", distributed=True)
+    base = static.inputs + 1e-7
+    f = base.clone().requires_grad_(True)
+    out, _ = runner(pdist.localize(plan, f), st0, dts)
+    (part_mean(plan, out.N, n) / 1e5).backward()
+    g = halo.allsum(f.grad)
+    v = torch.as_tensor(np.random.default_rng(11).normal(size=n))
+    v = v / torch.linalg.vector_norm(v)
+
+    def loss(field):
+        with torch.no_grad():
+            o, _ = runner(pdist.localize(plan, field), st0, dts)
+            return halo.allsum(part_mean(plan, o.N, n) / 1e5)
+
+    h = 1e-6 * float(torch.linalg.vector_norm(base))
+    return {"g": user(md, g), "g_rank": user(md, f.grad),
+            "loss": loss(base), "gdir": torch.dot(g, v),
+            "fd": (loss(base + h * v) - loss(base - h * v)) / (2 * h)}
+
+
+def case_controls(rank, P):
+    """control="G" and "storage": one backward each (2 steps), and an
+    unknown control refused."""
+    md = adj_md(steps=2)
+    dts = timestep_sizes(md.timesteps)[:2]
+    _, static, _, _ = md.freeze("cpu", distributed=True)
+    res = {}
+    for ctl in ("G", "storage"):
+        runner, st0, plan = pdist.make_distributed_runner(adj_md(steps=2),
+                                                          control=ctl)
+        f = (getattr(static, ctl) + 1e-3).requires_grad_(True)
+        out, _ = runner(pdist.localize(plan, f), st0, dts)
+        part_mean(plan, out.N + out.b, md.x.size).backward()
+        res[f"g_{ctl}"] = plan["mesh"].halo.allsum(f.grad)
+    try:
+        pdist.make_distributed_runner(adj_md(steps=2), control="z_b")
+        res["refused"] = ""
+    except ValueError as e:
+        res["refused"] = str(e)
+    return res
+
+
+def case_mg(rank, P):
+    """case_grad_scale's gradient with mg on the ranks' halo."""
+    md = adj_md(**MG)
+    dts = timestep_sizes(md.timesteps)
+    runner, st0, plan = pdist.make_distributed_runner(md)
+    s = torch.tensor(1.0, dtype=F64, requires_grad=True)
+    out, _ = runner(st0, with_scale(dts, s))
+    part_mean(plan, out.N, md.x.size).backward()
+    return {"g": plan["mesh"].halo.allsum(s.grad),
+            "precond": plan["cfg"].precond}
+
+
+def case_strict(rank, P):
+    """lin_maxiter=1 (tests/test_adjoint.py's strict case): with and
+    without SHAKTI_ADJOINT_STRICT=1, the gradient with respect to the
+    initial gap and the adjoint warnings each rank saw."""
+    res = {}
+    for tag in ("loose", "strict"):
+        if tag == "strict":
+            os.environ["SHAKTI_ADJOINT_STRICT"] = "1"
+        try:
+            md = adj_md(steps=2, lin_maxiter=1, max_iter=60)
+            runner, st0, plan = pdist.make_distributed_runner(md)
+            b0 = st0.b.clone().requires_grad_(True)
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                out, d = runner(dataclasses.replace(st0, b=b0),
+                                timestep_sizes(md.timesteps)[:1])
+                part_mean(plan, out.N, md.x.size).backward()
+        finally:
+            os.environ.pop("SHAKTI_ADJOINT_STRICT", None)
+        res[f"{tag}_g"] = b0.grad
+        res[f"{tag}_owned"] = plan["mesh"].halo.owned_mask > 0
+        res[f"{tag}_converged"] = bool(d["converged"].all())
+        res[f"{tag}_warnings"] = sum("adjoint Krylov solve unconverged"
+                                     in str(w.message) for w in seen)
+    return res
+
+
+def case_raise(rank, P):
+    """Every reduction over the ranks given a tensor that requires grad
+    under grad mode raises (on every rank, before its collective); detached
+    or under no_grad it runs."""
+    md = slab(8)
+    plan = H.build_halo(md.x.size, md.cells, P)
+    h = H.Halo(plan, rank, F64, "cpu")
+    x = torch.ones(plan["L"], dtype=F64, requires_grad=True)
+    calls = {"allsum": lambda v: h.allsum(v), "dot": lambda v: h.dot(v, v),
+             "dots": lambda v: h.dots([(v, v)]), "norm": h.norm,
+             "max": lambda v: h.max(v.max()), "min": lambda v: h.min(v.min()),
+             "gather": h.gather,
+             "all_to_all": lambda v: h.all_to_all(v[:0], [0] * P, [0] * P)}
+    res = {}
+    for name, fn in calls.items():
+        try:
+            fn(x)
+            res[f"raised_{name}"] = ""
+        except RuntimeError as e:
+            res[f"raised_{name}"] = str(e)
+    with torch.no_grad():
+        res["no_grad_dot"] = h.dot(x, x)
+    res["detached_dot"] = h.dot(x.detach(), x.detach())
+    return res
+
+
 SUITES = {
     "parallel": [case_halo, case_shard, _mg()],
     "dist2": [case_jacobi, case_bicgstab, case_steady],
     "dist4": [case_jacobi, _formats("bell"), _formats("bcsr"),
               case_two_level, case_two_level_jacobi, case_local_two_level,
               _mg(), _mg(mg_cycle="w"), _mg(mg_smooth_p=4.0 / 3.0)],
-    "multihost": [case_solve, case_group, case_resume, case_seasonal,
-                  case_jax_resume, case_cli],
+    "multihost": [case_solve, case_group, case_written, case_resume,
+                  case_seasonal, case_jax_resume, case_cli],
     "imports": [case_modules],
     "toy8": [case_toy],
+    "adjoint2": [case_dot, case_grad_scale, case_field, case_raise],
+    "adjoint3": [case_dot, case_controls, case_strict],
+    "adjoint4": [case_dot, case_grad_scale, case_mg],
 }
 # the names of the cases made by a factory
 NAMES = {"parallel": ["halo", "shard", "mg_v"],
@@ -310,6 +564,8 @@ def _np(v):
 
 
 def main():
+    # the test's finish_world asks a hung rank for its stack with SIGUSR1
+    faulthandler.register(signal.SIGUSR1)
     suite, rank, world, init, out_dir = sys.argv[1:6]
     rank, world = int(rank), int(world)
     if init == "env":

@@ -46,19 +46,16 @@ def rel_err(got, ref):
     return float(np.abs(got - ref).max() / scale)
 
 
-def free_port() -> int:
-    import socket
-    s = socket.socket()
-    s.bind(("localhost", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
-
-
 def start_world(suite: str, world: int, out_dir, env_init: bool = False):
     """Start tests/torch_dist_worker.py's ``suite`` on ``world`` gloo ranks
     (one subprocess each, file:// init, or torchrun's variables with
-    ``env_init``); :func:`finish_world` collects it."""
+    ``env_init``); :func:`finish_world` collects it.
+
+    With ``env_init`` this process hosts the rendezvous store, as torchrun's
+    agent does: it binds port 0 (the system picks a free port and the
+    store holds it from then on) and every rank joins as a client
+    (TORCHELASTIC_USE_AGENT_STORE).  A port chosen free and bound later by
+    rank 0 could be taken in between by another process of a loaded host."""
     import subprocess
     import sys
 
@@ -68,9 +65,16 @@ def start_world(suite: str, world: int, out_dir, env_init: bool = False):
     env = dict(os.environ, OMP_NUM_THREADS="1")
     env.pop("SHAKTI_RUN_GROUP", None)
     init = os.path.join(out_dir, "init")
+    store = None
     if env_init:
-        env.update(MASTER_ADDR="localhost", MASTER_PORT=str(free_port()),
-                   WORLD_SIZE=str(world))
+        import datetime
+
+        from torch.distributed import TCPStore
+        store = TCPStore("localhost", 0, is_master=True,
+                         wait_for_workers=False,
+                         timeout=datetime.timedelta(seconds=300))
+        env.update(MASTER_ADDR="localhost", MASTER_PORT=str(store.port),
+                   WORLD_SIZE=str(world), TORCHELASTIC_USE_AGENT_STORE="True")
         init = "env"
     procs = []
     for r in range(world):
@@ -79,26 +83,49 @@ def start_world(suite: str, world: int, out_dir, env_init: bool = False):
             [sys.executable, worker, suite, str(r), str(world), init,
              out_dir], env=e, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
-    return suite, world, out_dir, procs
+    return suite, world, out_dir, procs, store
+
+
+def _tails(procs, logs, lines=40) -> str:
+    """Every rank's exit code and the last ``lines`` lines of its log."""
+    return "\n".join(
+        f"--- rank {r} (exit {p.returncode}):\n"
+        + "\n".join((log or "").splitlines()[-lines:])
+        for r, (p, log) in enumerate(zip(procs, logs)))
 
 
 def finish_world(handle, timeout: float = 240.0) -> dict:
     """Wait for a world of :func:`start_world` and return {case: [per-rank
-    result dicts]} ({case: traceback} where a rank raised).  A rank that
-    hangs past ``timeout`` seconds kills the world and fails the test."""
+    result dicts]} ({case: traceback} where a rank raised).  A world still
+    running ``timeout`` seconds after this call is killed and fails the
+    test; a failure shows every rank's last log lines."""
+    import signal
     import subprocess
+    import time
 
     import pytest
 
-    suite, world, out_dir, procs = handle
+    suite, world, out_dir, procs, _store = handle
+    deadline = time.monotonic() + timeout
     logs = []
     for p in procs:
         try:
-            logs.append(p.communicate(timeout=timeout)[0])
+            logs.append(p.communicate(
+                timeout=max(deadline - time.monotonic(), 1))[0])
         except subprocess.TimeoutExpired:
+            # each rank still running prints its Python stack
+            # (torch_dist_worker.py registers SIGUSR1), then is killed
+            for q in procs:
+                if q.poll() is None:
+                    q.send_signal(signal.SIGUSR1)
+            time.sleep(2.0)
             for q in procs:
                 q.kill()
-            pytest.fail(f"{suite}: a rank hung past {timeout} s")
+            logs = [q.communicate()[0] for q in procs]
+            done = sorted(f for f in os.listdir(out_dir)
+                          if f.endswith((".npz", ".err")))
+            pytest.fail(f"{suite}: a rank hung past {timeout} s (cases "
+                        f"written: {done})\n" + _tails(procs, logs))
     names = sorted({f.rsplit("_r", 1)[0] for f in os.listdir(out_dir)
                     if f.endswith((".npz", ".err")) and "_r" in f})
     out = {}
@@ -112,11 +139,10 @@ def finish_world(handle, timeout: float = 240.0) -> dict:
         for r in range(world):
             with np.load(os.path.join(out_dir, f"{name}_r{r}.npz")) as z:
                 out[name].append({k: z[k] for k in z.files})
-    for p, log in zip(procs, logs):
-        if p.returncode != 0 and not any(isinstance(v, str)
-                                         for v in out.values()):
-            pytest.fail(f"{suite}: a rank exited {p.returncode}:\n"
-                        f"{log[-4000:]}")
+    if (any(p.returncode != 0 for p in procs)
+            and not any(isinstance(v, str) for v in out.values())):
+        pytest.fail(f"{suite}: a rank exited non-zero\n"
+                    + _tails(procs, logs))
     return out
 
 
