@@ -191,6 +191,18 @@ Phases (any failure raises: exit code != 0 and no result line):
      rank the backward's launches (none through a plain version), the
      backward's and forward's wall time, the collectives' share of each
      (phase 19's clock) and peak memory.
+ 21. validate: the port's validation drivers (scripts/torch_*.py, twins of
+     scripts/cooke2_report.py, shmip_validate.py, cooke2_steady.py) on the
+     card: (a) torch_cooke2_report.analyze over phase 18's results
+     directory equal to phase 18's battery (rounded as the report rounds);
+     (b) one year of SHMIP A1 (60 x 12, 4 steps a day, float64) through
+     torch_shmip_validate.run_case: every step converged, relN_win against
+     the 1D oracle within 1 % of the JAX package's year 1
+     (scripts/shmip_results.json), bell_spmv launched, no plain operator
+     called; (c) torch_cooke2_steady.compute (the direct float64 steady
+     Cook_E2) capped at 3 PTC steps: finite, on bell_spmv likewise.  The
+     full runs (the 10-year Cook_E2, suite A, S_A1, the steady Cook_E2) are
+     the scripts' own commands, not this script's.
 The line before the last is a JSON object with the kernels' numbers; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -1545,30 +1557,11 @@ def phase_polish(dev, tmp, slab=None):
     return res
 
 
-class counted_plain:
+def counted_plain():
     """Counts the calls of the plain operators (ops/spmv_cuda.py) while
-    active: a CUDA run must make none."""
-
-    NAMES = ("bell_operator_plain", "ell_operator_plain",
-             "bell_operator_batched_plain")
-
-    def __enter__(self):
-        from shakti_tpu_torch.ops import spmv_cuda
-        self.mod, self.calls = spmv_cuda, dict.fromkeys(self.NAMES, 0)
-        self.real = {k: getattr(spmv_cuda, k) for k in self.NAMES}
-
-        def counted(name, fn):
-            def wrapped(*a, **k):
-                self.calls[name] += 1
-                return fn(*a, **k)
-            return wrapped
-        for k, fn in self.real.items():
-            setattr(spmv_cuda, k, counted(k, fn))
-        return self.calls
-
-    def __exit__(self, *exc):
-        for k, fn in self.real.items():
-            setattr(self.mod, k, fn)
+    active: a CUDA run must make none (scripts/torch_cooke2_report.py's
+    CountPlain)."""
+    return script("torch_cooke2_report").CountPlain()
 
 
 def sync_s(dev, t0):
@@ -2071,15 +2064,15 @@ def same_mesh(got_dir, ref_dir=COOKE2_DIR):
     return same, gn.shape[0], gc.shape[0]
 
 
-def far_mask(md):
-    """scripts/cooke2_report.py:far_mask: off-lake, off-Dirichlet nodes more
-    than 25 km from the lake."""
-    lake = md.lake_bdry.astype(bool)
-    m = ~lake
-    m[md.dirichlet_nodes()] = False
-    cx, cy = md.x[lake].mean(), md.y[lake].mean()
-    m &= np.hypot(md.x - cx, md.y - cy) > 25e3
-    return m
+def script(name):
+    """scripts/<name>.py of this checkout, loaded by path (once)."""
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(HERE, "scripts", name + ".py"))
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod
+        spec.loader.exec_module(mod)
+    return sys.modules[name]
 
 
 def cooke2_setup(env, **kw):
@@ -2104,7 +2097,7 @@ def cooke2_battery(rdir, md):
     from shakti_tpu_torch import post
     r = post.load_results(rdir)
     lake = md.lake_bdry.astype(bool)
-    far = far_mask(md)
+    far = script("torch_cooke2_report").far_mask(md)
     t, N, b = r["t"], r["N"], r["b"]
     lvl = post.lake_level(N, lake, md.params)
     # the level straight from the N history: -(mean N - mean N_0)/(rho_w g)
@@ -2263,6 +2256,88 @@ def phase_cooke2(dev, tmp):
             last["dirichlet"], e64, 1e-12, 1e-12)
     res["wall_s"] = time.perf_counter() - t_phase
     log(f"  phase 18: {res['wall_s']:.1f} s")
+    return res, (md, rdir, battery)
+
+
+# ---- phase 21: the validation drivers of the port (scripts/torch_*.py)
+VALIDATE_STEADY_STEPS = 3
+
+
+def jax_a1_year1():
+    """relN_win of the JAX package's A1 after year 1 (scripts/shmip_validate.py
+    on the CPU, cached in scripts/shmip_results.json)."""
+    with open(os.path.join(HERE, "scripts", "shmip_results.json")) as f:
+        return json.load(f)["A1"]["yearly"][0]["relN_win"]
+
+
+def phase_validate(dev, cooke2_run):
+    """Phase 21: (a) torch_cooke2_report.analyze over phase 18's results
+    directory equal to phase 18's own battery (rounded as the report rounds
+    it); (b) one year of SHMIP A1 (60 x 12, 4 steps a day, float64) through
+    torch_shmip_validate.run_case: every step converged, relN_win within 1 %
+    of the JAX package's year 1, bell_spmv launched and no plain operator
+    called; (c) torch_cooke2_steady.compute on the committed catchment in
+    float64, capped at VALIDATE_STEADY_STEPS PTC steps: finite, on
+    bell_spmv likewise."""
+    from shakti_tpu_torch.ops import spmv_cuda
+    t_phase = time.perf_counter()
+    report = script("torch_cooke2_report")
+    shmip_v = script("torch_shmip_validate")
+    steady = script("torch_cooke2_steady")
+    md, rdir, bat18 = cooke2_run
+    _, got = report.analyze(rdir, md)
+    digits = {"far_field_mean_N_MPa": 4, "far_field_ratio": 4,
+              "lake_mean_N_final_MPa": 4, "lake_level_final_m": 3,
+              "filling_rate_m_per_yr": 4, "mean_gap_final_mm": 3,
+              "max_offlake_flux_final_m2s": 5}
+    want = {k: round(bat18[k], d) for k, d in digits.items()}
+    want["n_rows"] = bat18["rows"]
+    res = {"report": got}
+    log("  (a) torch_cooke2_report.analyze on phase 18's run: "
+        + json.dumps(got))
+    if got != want:
+        raise RuntimeError(f"report battery {got} != phase 18's {want}")
+
+    spmv_cuda.reset_launches()
+    t0 = time.perf_counter()
+    with counted_plain() as plain:
+        _, _, _, yearly, q_out, q_src = shmip_v.run_case(
+            "A1", 1, device=str(dev))
+    wall = sync_s(dev, t0)
+    ref = jax_a1_year1()
+    a1 = dict(yearly[0], Q_out=q_out, Q_src=q_src,
+              launches=dict(spmv_cuda.launches), plain_calls=dict(plain),
+              steps=365 * 4, ms_per_step=1e3 * wall / (365 * 4),
+              jax_relN_win=ref)
+    res["a1"] = a1
+    log("  (b) SHMIP A1, 1 year, 60 x 12, float64: " + json.dumps(a1))
+    if not (a1["converged"] and a1["launches"]["bell_spmv"] > 0
+            and not any(plain.values())
+            and abs(a1["relN_win"] - ref) <= 0.01 * ref):
+        raise RuntimeError(f"SHMIP A1 year 1: {a1}")
+
+    smd = report.cooke2_model()
+    smd.device, smd.dtype = dev, torch.float64
+    spmv_cuda.reset_launches()
+    t0 = time.perf_counter()
+    with counted_plain() as plain:
+        st = steady.compute(smd, 1e-3, VALIDATE_STEADY_STEPS, strict=False)
+    wall = sync_s(dev, t0)
+    st.update(launches=dict(spmv_cuda.launches), plain_calls=dict(plain),
+              wall_s=wall)
+    res["steady"] = st
+    log("  (c) torch_cooke2_steady.compute, "
+        f"{VALIDATE_STEADY_STEPS} PTC steps: " + json.dumps(st))
+    if not (st["solver"]["steps"] == VALIDATE_STEADY_STEPS
+            and all(np.isfinite(st[k]) for k in (
+                "far_field_ratio", "lake_mean_N_MPa", "mean_gap_mm",
+                "Q_out_m3s", "Q_src_m3s"))
+            and st["launches"]["bell_spmv"] > 0 and not any(plain.values())):
+        raise RuntimeError(f"steady compute: {st}")
+    res["launches"] = (a1["launches"]["bell_spmv"]
+                       + st["launches"]["bell_spmv"])
+    res["wall_s"] = time.perf_counter() - t_phase
+    log(f"  phase 21: {res['wall_s']:.1f} s")
     return res
 
 
@@ -3011,7 +3086,7 @@ BATCHED_LINE_KEYS = ("M", "max_abs_err", "ms", "device_ms", "singles_ms",
 
 PHASES = ("kernel", "goldens", "main", "ell", "scale", "formats", "resume",
           "bootstrap", "bicgstab", "mg", "steady", "polish", "dist", "adjoint",
-          "ensemble", "cooke2", "dist_adjoint")
+          "ensemble", "cooke2", "dist_adjoint", "validate")
 
 
 def main(argv=None):
@@ -3024,7 +3099,8 @@ def main(argv=None):
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES)
                     + " (resume needs main, bicgstab needs formats, scale "
-                    "needs ell, mg needs scale and formats); the result lines "
+                    "needs ell, mg needs scale and formats, validate needs "
+                    "cooke2); the result lines "
                     "need all of them")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
@@ -3060,7 +3136,7 @@ def main(argv=None):
         log(f"[{name}] (t = {time.perf_counter() - t_start:.1f} s)")
 
     kres = mres = sres = eres = gres = stres = pres = slab = None
-    ares = enres = cres = dres = fres = xres = ref = main_dir = None
+    ares = enres = cres = dres = fres = xres = vres = ref = main_dir = None
     # ---- 3. bell_spmv vs plain at the bench shapes ----
     from shakti_tpu_torch.setups import setup_bench
     if "kernel" in phases:
@@ -3188,10 +3264,15 @@ def main(argv=None):
         stamp("ensemble: bench model, float32, M = 8, 24 steps")
         enres = phase_ensemble(dev)
     # ---- 18. Cook_E2 from the potential field to the battery ----
+    # ---- 21. the validation drivers, on phase 18's run ----
     if "cooke2" in phases:
         stamp("cooke2: basin mesh, 10 days f32, battery, f32 vs f64")
         with tempfile.TemporaryDirectory() as tmp:
-            cres = phase_cooke2(dev, tmp)
+            cres, cooke2_run = phase_cooke2(dev, tmp)
+            if "validate" in phases:
+                stamp("validate: the report on phase 18's run, SHMIP A1 one "
+                      "year, the steady Cook_E2 capped")
+                vres = phase_validate(dev, cooke2_run)
     # ---- 20. the distributed adjoint ----
     if "dist_adjoint" in phases:
         stamp("dist_adjoint: bench model, float64, 3 steps, 2 ranks, "
@@ -3226,6 +3307,7 @@ def main(argv=None):
         "launches_dist_adjoint_backward": sum(
             p["launches_backward"]["bell_spmv"] for p in xres["per_rank"]),
         "max_abs_err_dist_adjoint": xres["kernel_check"],
+        "launches_validate": vres["launches"],
         "W": kres["W"],
         **{k: f32[k] for k in LINE_KEYS}, "bound_by": f32["bound_by"],
         "float64": {k: kres["float64"][k] for k in LINE_KEYS}}, {

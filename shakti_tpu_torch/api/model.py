@@ -33,6 +33,13 @@ from shakti_tpu_torch.utils.backend import resolve_device
 BELL_MAX_NODES = 200_000
 
 
+def default_dtype():
+    """The dtype a ModelSetup takes unless told otherwise: torch.float32
+    (the JAX package's answer follows jax_enable_x64; the port has no such
+    switch, and a setup asks for float64 by setting ``md.dtype``)."""
+    return torch.float32
+
+
 class ModelSetup:
     """Mutable experiment configuration (reference model_setup.py:18-66).
 
@@ -47,7 +54,7 @@ class ModelSetup:
         self.x = self.nodes[:, 0]
         self.y = self.nodes[:, 1]
         self.params = params
-        self.dtype = dtype or torch.float32
+        self.dtype = dtype or default_dtype()
         self.device = device
 
         n = self.nodes.shape[0]

@@ -107,7 +107,8 @@ def main(argv=None):
     from shakti_tpu_torch.utils.multihost import init_multihost, local_device
     primary = True
     if args.dist or args.multihost:
-        nproc, _, primary = init_multihost(args.device, args.backend)
+        nproc, _, primary = init_multihost(device=args.device,
+                                               backend=args.backend)
         if args.multihost:
             if not args.quiet and primary:
                 print(f"multihost: {nproc} processes")

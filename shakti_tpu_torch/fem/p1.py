@@ -50,3 +50,8 @@ def quadrature(degree: int):
         degree = min(d for d in _QUAD if d >= degree) if degree <= 4 else 4
     pts, w = _QUAD[degree]
     return pts.copy(), w.copy()
+
+
+# P1 interpolation points are the vertices (Basix ``interpolation_points()``
+# for P1): the identity shape matrix
+VERTEX_PHI = np.eye(3)

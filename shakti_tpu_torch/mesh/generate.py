@@ -1,8 +1,9 @@
 """Host-side mesh generators (numpy).
 
 The port's copy of shakti_tpu/mesh/generate.py: rectangle_mesh, which the
-built-in setups and the tests mesh with, and polygon_mesh (Delaunay over
-scipy.spatial), which the SHMIP valley suites E and F mesh with.
+built-in setups and the tests mesh with, polygon_mesh (Delaunay over
+scipy.spatial), which the SHMIP valley suites E and F mesh with, and
+disk_mesh, the crude ring disk of synthetic lake tests.
 """
 
 from __future__ import annotations
@@ -133,3 +134,43 @@ def _min_dist2_chunked(grid, bpts, chunk=4096):
         out[i:i + chunk] = ((g[:, None, :] - bpts[None, :, :]) ** 2).sum(-1).min(axis=1)
     return out
 
+
+def disk_mesh(n_rings: int, radius: float = 1.0, center=(0.0, 0.0)):
+    """Crude structured disk triangulation: a center node and rings of 6 r
+    nodes, ring r - 1 stitched to ring r by advancing whichever ring lags
+    in angle.  Used by synthetic lake tests; not a production mesher."""
+    nodes = [np.array(center, dtype=float)]
+    ring_start = [0]
+    for r in range(1, n_rings + 1):
+        k = 6 * r
+        ring_start.append(len(nodes))
+        th = np.linspace(0, 2 * np.pi, k, endpoint=False)
+        rad = radius * r / n_rings
+        for t in th:
+            nodes.append(np.array([center[0] + rad * np.cos(t),
+                                   center[1] + rad * np.sin(t)]))
+    nodes = np.asarray(nodes)
+
+    cells = []
+    for r in range(1, n_rings + 1):
+        k_out = 6 * r
+        k_in = 6 * (r - 1) if r > 1 else 1
+        out0 = ring_start[r]
+        in0 = ring_start[r - 1]
+        if r == 1:
+            for i in range(k_out):
+                cells.append([0, out0 + i, out0 + (i + 1) % k_out])
+            continue
+        ii, oo = 0, 0
+        for _ in range(k_in + k_out):
+            a_in = in0 + (ii % k_in)
+            a_out = out0 + (oo % k_out)
+            ang_in_next = 2 * np.pi * (ii + 1) / k_in
+            ang_out_next = 2 * np.pi * (oo + 1) / k_out
+            if ang_out_next <= ang_in_next:
+                cells.append([a_in, a_out, out0 + ((oo + 1) % k_out)])
+                oo += 1
+            else:
+                cells.append([a_in, a_out, in0 + ((ii + 1) % k_in)])
+                ii += 1
+    return nodes, np.asarray(cells, dtype=np.int32)

@@ -20,6 +20,11 @@ def boundary_edges(cells: np.ndarray) -> np.ndarray:
     return e[idx[counts == 1]]
 
 
+def boundary_nodes(cells: np.ndarray) -> np.ndarray:
+    """Sorted unique node ids lying on the domain boundary."""
+    return np.unique(boundary_edges(cells))
+
+
 def locate_boundary_nodes(nodes: np.ndarray, cells: np.ndarray, predicate) -> np.ndarray:
     """Node ids of boundary *facets* whose vertices all satisfy ``predicate``
     (a facet is marked only when every vertex satisfies it; its P1 dofs are

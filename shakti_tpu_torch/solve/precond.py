@@ -198,6 +198,21 @@ def two_level_from_inverse(A_inv, a_diag, dirichlet, block: int, n: int):
     return apply
 
 
+def make_two_level(J_c, mesh, dirichlet, a_diag, block: int = 64,
+                   vals=None):
+    """Additive two-level preconditioner for A = -J: z = D^{-1} r +
+    P (A_c^{-1} (P^T r)), P piecewise constant over contiguous aggregates of
+    ``block`` nodes.  The coarse operator comes from the folded row-storage
+    ``vals`` where they tile the aggregates, else from the element blocks
+    ``J_c``."""
+    if vals is not None and vals_coarse_ok(mesh, block):
+        A_inv = coarse_from_values(vals, mesh, dirichlet, block)
+    else:
+        A_inv = coarse_inverse(J_c, mesh, dirichlet, block)
+    return two_level_from_inverse(A_inv, a_diag, dirichlet, block,
+                                  mesh.n_nodes)
+
+
 def _rank_plans(mesh, block=None):
     """The host plans of the distributed two-level builds on ``mesh`` (a
     rank's share), cached on its cells tensor: the coarse operator's sum
@@ -328,12 +343,8 @@ def make_preconditioner(name: str, mesh, dirichlet, a_diag,
                                         coarse_block)
         return make_jacobi(a_diag, dirichlet, tiny)
     if name == "two_level":
-        if vals is not None and vals_coarse_ok(mesh, coarse_block):
-            A_inv = coarse_from_values(vals, mesh, dirichlet, coarse_block)
-        else:
-            A_inv = coarse_inverse(J_c, mesh, dirichlet, coarse_block)
-        return two_level_from_inverse(A_inv, a_diag, dirichlet, coarse_block,
-                                      mesh.n_nodes)
+        return make_two_level(J_c, mesh, dirichlet, a_diag, coarse_block,
+                              vals=vals)
     if name == "jacobi":
         return make_jacobi(a_diag, dirichlet, tiny)
     raise ValueError(f"preconditioner must be one of {PRECONDITIONERS}, "

@@ -10,6 +10,10 @@ torchrun, which sets the standard variables:
     MASTER_ADDR, MASTER_PORT, RANK, WORLD_SIZE, LOCAL_RANK
 
 and the node-sharded runner (parallel/dist.py) runs one share on each rank.
+A bespoke launcher names the group itself, as the JAX package's
+``init_multihost(coordinator, num_processes, process_id)`` does, here by
+keyword: ``init_multihost(coordinator="host:port", num_processes=P,
+process_id=r)``.
 
 IO: the run layer (api/run.py) funnels all file IO through rank 0, like the
 reference's rank-0 gather funnel (reference solvers.py:86-102, 205-215);
@@ -33,49 +37,72 @@ import torch.distributed as dist
 ENV = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK")
 
 
-def local_device(device="cuda") -> torch.device:
-    """This rank's device: ``cuda:LOCAL_RANK`` (modulo the cards present, so
-    that ranks share a card when there are fewer cards than ranks) for a
-    CUDA ``device`` without an index, else ``device``."""
+def local_device(device="cuda", rank: int | None = None) -> torch.device:
+    """This rank's device: ``cuda:LOCAL_RANK`` (without it ``cuda:rank``,
+    the explicit route's process id, else ``cuda:0``; modulo the cards
+    present, so that ranks share a card when there are fewer cards than
+    ranks) for a CUDA ``device`` without an index, else ``device``."""
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
-        rank = int(os.environ.get("LOCAL_RANK", "0"))
-        dev = torch.device("cuda", rank % max(torch.cuda.device_count(), 1))
+        local = int(os.environ.get("LOCAL_RANK", rank or 0))
+        dev = torch.device("cuda", local % max(torch.cuda.device_count(), 1))
     return dev
 
 
-def init_multihost(device="cuda", backend: str | None = None, timeout=None):
-    """Join the process group torchrun describes (idempotent).
+def init_multihost(*, coordinator: str | None = None,
+                   num_processes: int | None = None,
+                   process_id: int | None = None, device="cuda",
+                   backend: str | None = None, timeout=None):
+    """Join a process group (idempotent).  Keywords only: a call in the JAX
+    package's positional order raises TypeError.
 
-    ``backend``: None for NCCL on ``cuda:LOCAL_RANK`` with a CUDA
-    ``device``, gloo with ``device='cpu'``; 'gloo' lets several ranks share
-    one card (NCCL refuses two ranks on one GPU).  ``timeout``: a
-    datetime.timedelta after which a collective no peer joins aborts the
-    run (default parallel/halo.TIMEOUT).  Returns (world_size, rank,
-    is_primary).  Without torchrun's variables: (1, 0, True), no group.
-    With them, a group that cannot be formed raises."""
+    With ``coordinator`` ("host:port"; tests, bespoke launchers) the group
+    forms over ``tcp://coordinator`` with ``num_processes`` ranks, this one
+    ``process_id`` (the JAX package's jax.distributed.initialize route);
+    rank 0 hosts the rendezvous store there unless the launcher's agent
+    does (TORCHELASTIC_USE_AGENT_STORE).  Otherwise from torchrun's
+    variables; without them (1, 0, True) and no group.
+
+    ``backend``: None for NCCL on this rank's card with a CUDA ``device``,
+    gloo with ``device='cpu'``; 'gloo' lets several ranks share one card
+    (NCCL refuses two ranks on one GPU).  ``timeout``: a datetime.timedelta
+    after which a collective no peer joins aborts the run (default
+    parallel/halo.TIMEOUT).  Returns (world_size, rank, is_primary).  A
+    group that cannot be formed raises."""
     if dist.is_initialized():
         return dist.get_world_size(), dist.get_rank(), dist.get_rank() == 0
-    missing = [k for k in ENV if k != "LOCAL_RANK" and k not in os.environ]
-    if len(missing) == len(ENV) - 1:
-        return 1, 0, True
-    if missing:
-        raise RuntimeError(f"init_multihost: the launcher set only part of "
-                           f"its environment (missing {', '.join(missing)})")
+    if coordinator is not None:
+        if num_processes is None or process_id is None:
+            raise ValueError("init_multihost: coordinator needs "
+                             "num_processes and process_id")
+        init, rank, size = (f"tcp://{coordinator}", int(process_id),
+                            int(num_processes))
+        where = coordinator
+    else:
+        missing = [k for k in ENV if k != "LOCAL_RANK" and k not in os.environ]
+        if len(missing) == len(ENV) - 1:
+            return 1, 0, True
+        if missing:
+            raise RuntimeError(f"init_multihost: the launcher set only part "
+                               f"of its environment (missing "
+                               f"{', '.join(missing)})")
+        init, rank, size = ("env://", int(os.environ["RANK"]),
+                            int(os.environ["WORLD_SIZE"]))
+        where = f"{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}"
     from shakti_tpu_torch.parallel.halo import TIMEOUT
-    dev = local_device(device)
+    dev = local_device(device, rank if coordinator is not None else None)
     if backend is None:
         backend = "nccl" if dev.type == "cuda" else "gloo"
     kw = {"device_id": dev} if backend == "nccl" else {}
+    if coordinator is not None:
+        kw.update(rank=rank, world_size=size)
     try:
-        dist.init_process_group(backend, init_method="env://",
+        dist.init_process_group(backend, init_method=init,
                                 timeout=timeout or TIMEOUT, **kw)
     except Exception as e:
         raise RuntimeError(
-            f"init_multihost: rank {os.environ['RANK']} of "
-            f"{os.environ['WORLD_SIZE']} could not join the {backend} group "
-            f"at {os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']} "
-            f"({e})") from e
+            f"init_multihost: rank {rank} of {size} could not join the "
+            f"{backend} group at {where} ({e})") from e
     return dist.get_world_size(), dist.get_rank(), dist.get_rank() == 0
 
 

@@ -3,15 +3,20 @@ on the slab 12x12, lake 16x16 and Cook_E2 bench meshes: mesh generation,
 .msh reading and writing, RCB ordering and partitioning (rcb_partition,
 partition_cells, pad_to_blocks), the halo plan and its localize /
 globalize maps, boundary and Dirichlet location, the lake's
-point-in-polygon mask, gridded interpolation and the quadrature tables.
+point-in-polygon mask, gridded interpolation and the quadrature tables;
+the ring disk mesh, the boundary node list, VERTEX_PHI, ModelSetup's
+default dtype, and the public two-level constructor (its apply on the
+12x12 slab in float64 within 1e-12 of JAX's).
 The originals may take their native library's path here; the copies keep
 the numpy path only, so integer results must be equal and interpolated
 values agree to roundoff (1e-14 of scale)."""
 
 import os
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from shakti_tpu.data import interp as jinterp
 from shakti_tpu.fem import p1 as jp1
@@ -20,7 +25,10 @@ from shakti_tpu.mesh import geometry as jgeo
 from shakti_tpu.mesh import msh_io as jmsh
 from shakti_tpu.parallel import halo as jhalo
 from shakti_tpu.parallel import partition as jpart
+from shakti_tpu.mesh.mesh import build_mesh as jbuild
 from shakti_tpu.params import DEFAULT_PARAMS as JP
+from shakti_tpu.physics import residual as jres
+from shakti_tpu.solve import precond as jpc
 from shakti_tpu_torch import params as tparams
 from shakti_tpu_torch.data import interp as tinterp
 from shakti_tpu_torch.fem import p1 as tp1
@@ -28,7 +36,10 @@ from shakti_tpu_torch.mesh import generate as tgen
 from shakti_tpu_torch.mesh import geometry as tgeo
 from shakti_tpu_torch.mesh import msh_io as tmsh
 from shakti_tpu_torch.parallel import halo as thalo
+from shakti_tpu_torch.mesh.mesh import build_mesh as tbuild
 from shakti_tpu_torch.parallel import partition as tpart
+from shakti_tpu_torch.physics import residual as tres
+from shakti_tpu_torch.solve import precond as tpc
 from tests import torch_parity  # noqa: F401  (pins torch's threads)
 
 BENCH_MSH = os.path.join(os.path.dirname(os.path.dirname(
@@ -97,6 +108,63 @@ def test_rcb_order(name):
     perm = tpart.rcb_order(nodes)
     np.testing.assert_array_equal(perm, jpart.rcb_order(nodes))
     assert np.array_equal(np.sort(perm), np.arange(nodes.shape[0]))
+
+
+@pytest.mark.parametrize("rings", [1, 2, 3, 7])
+def test_disk_mesh(rings):
+    tn, tc = tgen.disk_mesh(rings, radius=5e3, center=(1e3, -2e3))
+    jn, jc = jgen.disk_mesh(rings, radius=5e3, center=(1e3, -2e3))
+    np.testing.assert_array_equal(tn, jn)
+    np.testing.assert_array_equal(tc, jc)
+    assert tc.dtype == jc.dtype and tn.shape[0] == 1 + 3 * rings * (rings + 1)
+
+
+@pytest.mark.parametrize("name", MESHES + ["disk"])
+def test_boundary_nodes(name):
+    nodes, cells = (jgen.disk_mesh(4) if name == "disk" else _mesh(name))
+    got = tgeo.boundary_nodes(cells)
+    np.testing.assert_array_equal(got, jgeo.boundary_nodes(cells))
+    if name == "disk":       # the outer ring: its 24 nodes, last in order
+        np.testing.assert_array_equal(got, np.arange(nodes.shape[0] - 24,
+                                                     nodes.shape[0]))
+
+
+def test_vertex_phi_and_default_dtype():
+    from shakti_tpu_torch.api import model as tmodel
+    np.testing.assert_array_equal(tp1.VERTEX_PHI, jp1.VERTEX_PHI)
+    assert tp1.VERTEX_PHI.dtype == jp1.VERTEX_PHI.dtype
+    assert tmodel.default_dtype() is torch.float32
+    nodes, cells = _mesh("slab")
+    assert tmodel.ModelSetup(nodes, cells).dtype is tmodel.default_dtype()
+
+
+@pytest.mark.parametrize("with_vals", [True, False])
+def test_make_two_level_matches_jax(with_vals):
+    """The apply z = D^-1 r + P A_c^-1 P^T r on the 12x12 slab (ELL, float64,
+    aggregates of 16): from the values folded as Newton folds them and from
+    the element blocks (symmetric and definite, as at a Newton iterate)."""
+    nodes, cells = _mesh("slab")
+    n = nodes.shape[0]
+    jm = jbuild(nodes, cells, dtype=jnp.float64, operator="ell")
+    tm = tbuild(nodes, cells, dtype=torch.float64, operator="ell")
+    rng = np.random.default_rng(11)
+    M = rng.normal(size=(cells.shape[0], 3, 3))
+    J = -(M @ M.transpose(0, 2, 1) + np.eye(3))
+    d = np.zeros(n, dtype=bool)
+    d[tgeo.boundary_nodes(cells)[::3]] = True
+    r = rng.normal(size=n)
+    jv = jres.fold_operator_values(jnp.asarray(J), jm)
+    tv = tres.fold_operator_values(torch.as_tensor(J), tm)
+    ja = jres.operator_diag_from_values(jv, jm)
+    ta = tres.operator_diag_from_values(tv, tm)
+    ref = jpc.make_two_level(jnp.asarray(J), jm, jnp.asarray(d), ja, 16,
+                             vals=jv if with_vals else None)(jnp.asarray(r))
+    got = tpc.make_two_level(torch.as_tensor(J), tm, torch.as_tensor(d), ta,
+                             16, vals=tv if with_vals else None)(
+        torch.as_tensor(r))
+    err = float(np.abs(got.numpy() - np.asarray(ref)).max()
+                / np.abs(np.asarray(ref)).max())
+    assert err <= 1e-12, err
 
 
 @pytest.mark.parametrize("name", MESHES)

@@ -1,6 +1,7 @@
 """The port imports nothing of shakti_tpu and nothing of jax: every module of
-shakti_tpu_torch/, chip_smoke.py and the golden cases it loads, and
-torch_ab.py, read with ``ast``; and a fresh
+shakti_tpu_torch/, chip_smoke.py and the golden cases it loads,
+torch_ab.py and the port's validation drivers (scripts/torch_*.py), read
+with ``ast``; and a fresh
 interpreter that imports every module of the package and runs a small
 model's freeze and one operator matvec ends with neither package loaded,
 none of the optional libraries that only some functions need (h5py,
@@ -25,7 +26,8 @@ ROOT = Path(__file__).resolve().parents[1]
 SOURCES = sorted(str(p.relative_to(ROOT))
                  for p in (ROOT / "shakti_tpu_torch").rglob("*.py")) + [
     "chip_smoke.py", "tests/torch_golden_cases.py",  # chip_smoke loads it
-    "torch_ab.py", "tests/torch_dist_worker.py"]   # a rank of the dist tests
+    "torch_ab.py", "tests/torch_dist_worker.py"] + sorted(  # a rank's code
+    str(p.relative_to(ROOT)) for p in (ROOT / "scripts").glob("torch_*.py"))
 FORBIDDEN = ("jax", "jaxlib", "shakti_tpu")
 
 

@@ -15,10 +15,18 @@ LOCAL_RANK), in float64 on the 10x10 slab (8 steps, saves every 4):
 - cli.main([... '--dist']) on both ranks, then the same results directory
   again: both ranks refuse it (rank 0's verdict is broadcast);
 - init_multihost without the launcher's variables and with only part of
-  them; every rank's final state and counts bit for bit equal.
+  them; every rank's final state and counts bit for bit equal;
+- init_multihost's explicit route (coordinator=, num_processes=,
+  process_id=: the JAX package's arguments, by keyword) forms a 2-rank gloo
+  world over tcp:// on a store the test hosts, without any of torchrun's
+  variables; a call in the JAX package's positional order raises TypeError
+  and never takes the address for a device.
 """
 
+import datetime
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -143,11 +151,62 @@ def test_cli_dist_and_refusal_on_both_ranks(world):
 def test_init_multihost_without_launcher(monkeypatch):
     for k in multihost.ENV:
         monkeypatch.delenv(k, raising=False)
-    assert multihost.init_multihost("cpu") == (1, 0, True)
+    assert multihost.init_multihost(device="cpu") == (1, 0, True)
     assert multihost.world() == (1, 0)
     x = torch.arange(3.0)
     np.testing.assert_array_equal(multihost.to_host(x), x.numpy())
     assert multihost.broadcast_flag(False) is False
     monkeypatch.setenv("MASTER_ADDR", "localhost")
     with pytest.raises(RuntimeError, match="missing"):
-        multihost.init_multihost("cpu")
+        multihost.init_multihost(device="cpu")
+
+
+_EXPLICIT = """
+import sys
+import torch
+import torch.distributed as dist
+from shakti_tpu_torch.utils import multihost
+coordinator, rank = sys.argv[1], int(sys.argv[2])
+got = multihost.init_multihost(coordinator=coordinator, num_processes=2,
+                               process_id=rank, device="cpu")
+t = torch.tensor([rank + 1.0])
+dist.all_reduce(t)
+print("GOT", *got, multihost.world(), float(t))
+dist.destroy_process_group()
+"""
+
+
+def test_init_multihost_explicit_route():
+    """Two ranks join through coordinator=, num_processes=, process_id=
+    alone: the store is this test's (bound on a port the system picked, as
+    torchrun's agent hosts it), every rank a client of it."""
+    from torch.distributed import TCPStore
+    store = TCPStore("localhost", 0, is_master=True, wait_for_workers=False,
+                     timeout=datetime.timedelta(seconds=120))
+    env = {k: v for k, v in os.environ.items() if k not in multihost.ENV}
+    env.update(TORCHELASTIC_USE_AGENT_STORE="True", OMP_NUM_THREADS="1")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _EXPLICIT, f"localhost:{store.port}", str(r)],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=120)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, out
+        assert out.strip().splitlines()[-1] == \
+            f"GOT 2 {r} {r == 0} (2, {r}) 3.0", out
+
+
+def test_init_multihost_jax_positional_order_raises(monkeypatch):
+    for k in multihost.ENV:
+        monkeypatch.delenv(k, raising=False)
+    for args in (("localhost:29500", 2, 0), ("localhost:29500",), ("cpu",)):
+        with pytest.raises(TypeError):
+            multihost.init_multihost(*args)
+    assert not torch.distributed.is_initialized()
+    with pytest.raises(ValueError, match="num_processes and process_id"):
+        multihost.init_multihost(coordinator="localhost:29500", device="cpu")

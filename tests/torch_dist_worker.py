@@ -570,7 +570,7 @@ def main():
     rank, world = int(rank), int(world)
     if init == "env":
         from shakti_tpu_torch.utils.multihost import init_multihost
-        assert init_multihost("cpu") == (world, rank, rank == 0)
+        assert init_multihost(device="cpu") == (world, rank, rank == 0)
     else:
         dist.init_process_group(
             "gloo", init_method=f"file://{init}", rank=rank,
