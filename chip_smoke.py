@@ -149,7 +149,8 @@ Phases (any failure raises: exit code != 0 and no result line):
  19. dist: the distributed path (parallel/dist.py, halo.py, shard.py,
      utils/multihost.py; api/run.py and api/steady.py with md.distributed)
      on gloo ranks that this script spawns (chip_smoke.py --dist-rank),
-     time-sliced on the one card, one world at a time, each rank with a
+     time-sliced on the one card (the 4-rank bench world beside the
+     2-rank steady world, then the 8-rank toy), each rank with a
      wall-clock limit and a clock on its collectives (their count, time
      and share of the rank's wall time): (a) the
      bench model in float64 for 4 steps on 4 ranks, the global two-level in
@@ -203,6 +204,28 @@ Phases (any failure raises: exit code != 0 and no result line):
      Cook_E2) capped at 3 PTC steps: finite, on bell_spmv likewise.  The
      full runs (the 10-year Cook_E2, suite A, S_A1, the steady Cook_E2) are
      the scripts' own commands, not this script's.
+ 22. drivers: the JAX package's drivers on the port at cuts, held to the
+     JAX package's code paths at the same cuts (tests/torch_examples_ref.py
+     on the CPU, committed as tests/torch_examples_cut_ref.json), at the
+     JAX examples' widths with fewer steps and iterations: (a) the five
+     example twins (examples/torch_*.py): calibrate_melt on the 16x16 slab
+     and invert_melt_field on the 20x20 one, their secant iterates and
+     Adam updates (float64, 1e-8), the checkpointed calibration step
+     against the unwrapped one (equal Newton/CG counts in the
+     recomputation, equal gradient, both peak memories), ensemble_uq's 8
+     members on the 24x24 slab for a day (float32, member-batched
+     launches; mean N within 1e-3), lake_workflow's post numbers through
+     api/run at 24x24 (float32, 1e-2: a cold start in float32),
+     basin_pipeline's 757-node mesh (equal counts, N finite, Newton total
+     within 1); (b) SHMIP's runners (scripts/torch_shmip_validate.py,
+     float64): B5 on 60x12 for 30 days, C1 for its two sampled days at
+     24 steps a day from it, D5 for 10 days and F5 for 2 hourly days with
+     the degree-day forcing and no spin, E1 for two hourly days on the
+     1,316-node valley with the certified budget: every step converged,
+     within 1e-6 of JAX's.  Every bell_spmv launch (single and
+     member-batched) counted, none through a plain version; the kernel
+     held to its plain version (f32 rtol 2e-6, f64 1e-12) on each run's
+     last operator, the batched launch on the ensemble's.
 The line before the last is a JSON object with the kernels' numbers; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -2064,11 +2087,11 @@ def same_mesh(got_dir, ref_dir=COOKE2_DIR):
     return same, gn.shape[0], gc.shape[0]
 
 
-def script(name):
-    """scripts/<name>.py of this checkout, loaded by path (once)."""
+def script(name, folder="scripts"):
+    """<folder>/<name>.py of this checkout, loaded by path (once)."""
     if name not in sys.modules:
         spec = importlib.util.spec_from_file_location(
-            name, os.path.join(HERE, "scripts", name + ".py"))
+            name, os.path.join(HERE, folder, name + ".py"))
         mod = importlib.util.module_from_spec(spec)
         sys.modules[name] = mod
         spec.loader.exec_module(mod)
@@ -2338,6 +2361,275 @@ def phase_validate(dev, cooke2_run):
                        + st["launches"]["bell_spmv"])
     res["wall_s"] = time.perf_counter() - t_phase
     log(f"  phase 21: {res['wall_s']:.1f} s")
+    return res
+
+
+# ---- phase 22: the JAX package's drivers on the port, at cuts ----
+# f32 cold starts part from JAX's CPU runs by roundoff amplified in the
+# first steps (at these cuts on an H100: ensemble mean N 8.5e-6, lake
+# far-field ratio 1.2e-5; up to 8.7e-4 at 12x12)
+DRIVER_RTOL = {"float64": 1e-8, "ensemble": 1e-3, "lake": 1e-2,
+               "shmip": 1e-6}
+
+
+class driver_operators:
+    """The last operator that each run of phase 22 built, by run: the
+    arguments of physics/residual's operator_from_values (one bell_spmv
+    launch a matvec) and batched_operator (the member-batched launch),
+    recorded while ``run`` names a run, to hold the kernel against its
+    plain version at the shapes the drivers gave it."""
+
+    def __init__(self):
+        self.run, self.single, self.batched = None, {}, {}
+
+    def __enter__(self):
+        from shakti_tpu_torch.physics import residual
+        self.mod = residual
+        self.real = real_single, real_batched = (residual.operator_from_values,
+                                                 residual.batched_operator)
+
+        def single(vals, mesh, dirichlet, extra=None):
+            if self.run is not None:
+                self.single[self.run] = (vals, mesh, dirichlet, extra)
+            return real_single(vals, mesh, dirichlet, extra)
+
+        def batched(vals, J_c, mesh, dirichlet, extra):
+            if self.run is not None and vals is not None:
+                self.batched[self.run] = (vals, mesh, dirichlet, extra)
+            return real_batched(vals, J_c, mesh, dirichlet, extra)
+        residual.operator_from_values = single
+        residual.batched_operator = batched
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.operator_from_values, self.mod.batched_operator = self.real
+
+    def check(self, dev, runs, batched_runs):
+        """bell_spmv, single and member-batched, against its plain version
+        on the last operator of each of ``runs`` and ``batched_runs``, in
+        the run's dtype (TOLS: f32 rtol 2e-6, f64 1e-12); raises where such
+        a run built no block-ELL operator."""
+        rng = np.random.default_rng(22)
+        out = {}
+        for kind, recs, names, check in (
+                ("single", self.single, runs, check_operator),
+                ("batched", self.batched, batched_runs, check_batched)):
+            for run in names:
+                if run not in recs or recs[run][1].bell_nbr is None:
+                    raise RuntimeError(f"phase 22 {run}: no block-ELL "
+                                       f"operator ({kind})")
+                vals, mesh, dirichlet, extra = recs[run]
+                vals = vals.detach()
+                extra = None if extra is None else extra.detach()
+                _, rtol, atol = next(t for t in TOLS if t[0] == vals.dtype)
+                shape = ((mesh.n_nodes,) if kind == "single"
+                         else (vals.shape[0], mesh.n_nodes))
+                x = torch.as_tensor(rng.standard_normal(shape),
+                                    dtype=vals.dtype, device=dev)
+                r = {"rows": mesh.n_nodes,
+                     "dtype": str(vals.dtype).removeprefix("torch.")}
+                if kind == "batched":
+                    r["M"] = vals.shape[0]
+                r["max_abs_err"] = check(
+                    f"drivers {run} last operator ({kind})", vals, mesh, x,
+                    dirichlet, extra, rtol, atol)
+                out.setdefault(kind, {})[run] = r
+        return out
+
+
+def _near(a, b, rtol):
+    return abs(a - b) <= rtol * max(abs(b), 1e-300)
+
+
+def drivers_examples(dev, tmp, ref, cuts, ops):
+    """Phase 22 (a): the example twins at ``cuts`` against ``ref``, each
+    run's operators recorded in ``ops`` (:class:`driver_operators`)."""
+    res, bad = {}, []
+    d = str(dev)
+    twins = {n: script("torch_" + n, "examples") for n in cuts
+             if n != "shmip"}
+    ops.run = "calibrate_melt"
+    t0 = time.perf_counter()
+    cal = twins["calibrate_melt"].main(device=d, **cuts["calibrate_melt"])
+    r = ref["calibrate_melt"]
+    res["calibrate_melt"] = dict(cal, wall_s=sync_s(dev, t0))
+    if not (len(cal["rows"]) == len(r["rows"])
+            and all(_near(g[k], j[k], DRIVER_RTOL["float64"])
+                    for g, j in zip(cal["rows"], r["rows"])
+                    for k in ("s", "loss", "grad"))
+            and _near(cal["s"], r["s"], DRIVER_RTOL["float64"])):
+        bad.append("calibrate_melt")
+    # the checkpointed step against the unwrapped one
+    ops.run = None
+    ck = script("torch_examples_card").checkpoint_compare(
+        twins["calibrate_melt"], d, **{k: cuts["calibrate_melt"][k] for k
+                                       in ("nx", "ny", "days",
+                                           "nt_per_day")})
+    res["checkpoint"] = {
+        "peak_MB_checkpointed": ck["checkpointed"]["peak_MB"],
+        "peak_MB_unwrapped": ck["unwrapped"]["peak_MB"],
+        "grad_equal": ck["grad_equal"],
+        "recompute_equal": ck["recompute_equal"],
+        "counts": ck["checkpointed"]["counts"]}
+    if not (ck["grad_equal"] and ck["recompute_equal"]
+            and ck["checkpointed"]["counts"]):
+        bad.append("checkpoint")
+
+    ops.run = "invert_melt_field"
+    t0 = time.perf_counter()
+    inv = twins["invert_melt_field"].main(device=d,
+                                          **cuts["invert_melt_field"])
+    r = ref["invert_melt_field"]
+    th, rth = np.asarray(inv.pop("theta")), np.asarray(r["theta"])
+    inv.update(wall_s=sync_s(dev, t0),
+               theta_err=float(np.abs(th - rth).max() / np.abs(rth).max()))
+    res["invert_melt_field"] = inv
+    if not (inv["theta_err"] <= DRIVER_RTOL["float64"]
+            and _near(inv["err"], r["err"], DRIVER_RTOL["float64"])):
+        bad.append("invert_melt_field")
+
+    ops.run = "ensemble_uq"
+    t0 = time.perf_counter()
+    ens = twins["ensemble_uq"].main(device=d, **cuts["ensemble_uq"])
+    r = ref["ensemble_uq"]
+    res["ensemble_uq"] = dict(ens, wall_s=sync_s(dev, t0),
+                              jax_final_mean_MPa=r["final_mean_MPa"])
+    if not (len(ens["rows"]) == len(r["rows"])
+            and all(_near(g["mean_N_MPa"], j["mean_N_MPa"],
+                          DRIVER_RTOL["ensemble"])
+                    for g, j in zip(ens["rows"], r["rows"]))):
+        bad.append("ensemble_uq")
+
+    ops.run = "lake_workflow"
+    t0 = time.perf_counter()
+    lake = twins["lake_workflow"].main(os.path.join(tmp, "lake"), device=d,
+                                       **cuts["lake_workflow"])
+    r = ref["lake_workflow"]
+    res["lake_workflow"] = dict(lake, wall_s=sync_s(dev, t0), jax=r)
+    if not (lake["steps"] == r["steps"]
+            and all(_near(lake[k], v, DRIVER_RTOL["lake"])
+                    for k, v in r.items() if k != "steps")):
+        bad.append("lake_workflow")
+
+    ops.run = "basin_pipeline"
+    t0 = time.perf_counter()
+    bas = twins["basin_pipeline"].main(os.path.join(tmp, "basin"),
+                                       device=d, **cuts["basin_pipeline"])
+    r = ref["basin_pipeline"]
+    res["basin_pipeline"] = dict(bas, wall_s=sync_s(dev, t0), jax=r)
+    if not (all(bas[k] == r[k] for k in ("outline_vertices", "nodes",
+                                         "triangles", "steps"))
+            and bas["finite"]
+            and abs(bas["newton_total"] - r["newton_total"]) <= 1):
+        bad.append("basin_pipeline")
+    return res, bad
+
+
+def drivers_shmip(dev, ref, cuts, ops):
+    """Phase 22 (b): the SHMIP runners at ``cuts`` against ``ref``, each
+    run's operators recorded in ``ops``."""
+    v = script("torch_shmip_validate")
+    d, tol = str(dev), DRIVER_RTOL["shmip"]
+    res, bad = {}, []
+
+    def timed(case, steps, fn):
+        ops.run = case
+        t0 = time.perf_counter()
+        out = fn()
+        wall = sync_s(dev, t0)
+        res[case] = {"wall_s": wall, "steps": steps,
+                     "ms_per_step": 1e3 * wall / steps}
+        return out
+
+    c = cuts["B5"]
+    md, b5, qo, qs, conv = timed("B5", round(365 * c["years"]) * c[
+        "nt_per_day"], lambda: v.run_b_case("B5", c["years"], device=d,
+                                            nt_per_day=c["nt_per_day"]))
+    prof = v.ymean_profile(md, md.to_user_order(b5.N))[1]
+    r = ref["B5"]
+    res["B5"].update(Q_out=qo, Q_src=qs, converged=conv,
+                     ymean_err=float(np.abs(prof - r["ymean_N"]).max()
+                                     / np.abs(r["ymean_N"]).max()))
+    if not (conv and _near(qo, r["Q_out"], tol) and _near(qs, r["Q_src"], tol)
+            and res["B5"]["ymean_err"] <= tol):
+        bad.append("B5")
+    c = cuts["C1"]
+    _, m = timed("C1", c["days"] * c["nt_per_day"],
+                 lambda: v.run_c_case("C1", b5, device=d, **c))
+    res["C1"].update(m)
+    if not (m["converged"] and all(_near(m[k], ref["C1"][k], tol)
+                                   for k in ("N_mean_cycle", "N_amp_MPa"))):
+        bad.append("C1")
+    for case in ("D5", "F5"):
+        c = cuts[case]
+        out = timed(case, c["days"] * c["nt_per_day"],
+                    lambda: v.run_seasonal_case(case, spin_years=0, device=d,
+                                                **c))
+        samples, conv, qo, qs = out[2:]
+        r = ref[case]
+        res[case].update(samples=samples.tolist(), converged=conv,
+                         Q_out=qo, Q_src=qs)
+        if not (conv and len(samples) == len(r["samples"])
+                and all(_near(a, b, tol)
+                        for a, b in zip(samples, r["samples"]))
+                and _near(qo, r["Q_out"], tol) and _near(qs, r["Q_src"], tol)):
+            bad.append(case)
+    c = cuts["E1"]
+    md, st, rel, conv, qo, qs = timed(
+        "E1", round(365 * c["years"]) * c["nt_per_day"],
+        lambda: v.run_e_case("E1", device=d, **c))
+    r = ref["E1"]
+    res["E1"].update(N_mean_MPa=float(md.to_user_order(st.N).mean() / 1e6),
+                     steady_rel=rel, converged=conv, Q_out=qo, Q_src=qs)
+    if not (conv and _near(res["E1"]["N_mean_MPa"], r["N_mean_MPa"], tol)
+            and _near(qo, r["Q_out"], tol) and _near(qs, r["Q_src"], tol)):
+        bad.append("E1")
+    return res, bad
+
+
+def phase_drivers(dev):
+    """Phase 22: the example twins and SHMIP's B-F runners at cuts against
+    the JAX package's values at the same cuts; every bell_spmv launch
+    counted (single and member-batched), none through a plain version; on
+    the card the kernel held against its plain version on each run's last
+    operator (the batched launch on the ensemble's)."""
+    from shakti_tpu_torch.ops import spmv_cuda
+    t_phase = time.perf_counter()
+    with open(os.path.join(HERE, "tests", "torch_examples_cut_ref.json")) as f:
+        ref = json.load(f)
+    spmv_cuda.reset_launches()
+    with tempfile.TemporaryDirectory() as tmp, counted_plain() as plain, \
+            driver_operators() as ops:
+        ex, bad = drivers_examples(dev, tmp, ref, ref["cuts"], ops)
+        sh, bad_s = drivers_shmip(dev, ref["shmip"], ref["cuts"]["shmip"],
+                                  ops)
+    res = {"examples": ex, "shmip": sh, "launches": dict(spmv_cuda.launches),
+           "plain_calls": dict(plain)}
+    for k, v in ex.items():
+        log(f"  (a) {k}: " + json.dumps({a: b for a, b in v.items()
+                                          if a not in ("rows", "counts")}))
+    for k, v in sh.items():
+        log(f"  (b) SHMIP {k}: " + json.dumps(v))
+    res["launches_drivers"] = (res["launches"]["bell_spmv"]
+                               + res["launches"]["bell_spmv_batched"])
+    log(f"  launches {json.dumps(res['launches'])}, plain calls "
+        f"{json.dumps(res['plain_calls'])}")
+    if bad or bad_s:
+        raise RuntimeError(f"phase 22: {bad + bad_s} disagree with JAX's")
+    if (res["launches"]["bell_spmv"] <= 0
+            or res["launches"]["bell_spmv_batched"] <= 0
+            or any(plain.values())):
+        raise RuntimeError(f"phase 22 launches: {res['launches']}, plain "
+                           f"{res['plain_calls']}")
+    if dev.type == "cuda":
+        # the ensemble's matvecs are all member-batched launches
+        res["kernel_check"] = ops.check(
+            dev, [k for k in ex if k not in ("checkpoint", "ensemble_uq")]
+            + list(sh), ["ensemble_uq"])
+        log("  bell_spmv on each run's last operator against the plain "
+            "version: " + json.dumps(res["kernel_check"]))
+    res["wall_s"] = time.perf_counter() - t_phase
+    log(f"  phase 22: {res['wall_s']:.1f} s")
     return res
 
 
@@ -2823,8 +3115,9 @@ def phase_dist(dev, tmp, ref=None, mg13=None, main_dir=None, slab=None):
     ``mg13``: phase 13 (a)'s block-CSR mg counts, printed beside; ``main_dir``
     phase 5's results; ``slab`` phase 14's (md, state, PTC steps).  Newton
     counts are held against single-device runs with the ranks' settings
-    (no operator carry), made here.  The worlds run one after another, each
-    alone on the card, after the single-device references."""
+    (no operator carry), made here.  After the single-device references
+    the bench and steady worlds run side by side (six host-bound ranks on
+    the host's cores), then the toy's eight ranks alone."""
     import dataclasses
 
     from shakti_tpu_torch.api.steady import solve_steady
@@ -2864,12 +3157,13 @@ def phase_dist(dev, tmp, ref=None, mg13=None, main_dir=None, slab=None):
         slab_N, slab_steps = o["N"], o["info"]["steps"]
     else:
         slab_N, slab_steps = slab[0].to_user_order(slab[1].N), slab[2]
-    # one world at a time: each rank's times are those of its own world
-    bench, res["bench_wall_s"] = _finish_world(_spawn_world("bench", 4, tmp))
+    # the bench and steady worlds side by side (each rank's times include
+    # the other world's share of the card), then the toy alone
+    handles = [_spawn_world("bench", 4, tmp), _spawn_world("steady", 2, tmp)]
+    bench, res["bench_wall_s"] = _finish_world(handles[0])
+    steady, res["steady_wall_s"] = _finish_world(handles[1])
     toy, res["toy_wall_s"] = _finish_world(_spawn_world("toy", 8, tmp))
-    steady, res["steady_wall_s"] = _finish_world(_spawn_world("steady", 2,
-                                                              tmp))
-    log("  worlds' wall s (one at a time): " + json.dumps(
+    log("  worlds' wall s (bench beside steady, then toy): " + json.dumps(
         {k: res[f"{k}_wall_s"] for k in ("bench", "toy", "steady")}))
 
     # ---- (a) the bench model, f64, 4 ranks ----
@@ -3086,7 +3380,7 @@ BATCHED_LINE_KEYS = ("M", "max_abs_err", "ms", "device_ms", "singles_ms",
 
 PHASES = ("kernel", "goldens", "main", "ell", "scale", "formats", "resume",
           "bootstrap", "bicgstab", "mg", "steady", "polish", "dist", "adjoint",
-          "ensemble", "cooke2", "dist_adjoint", "validate")
+          "ensemble", "cooke2", "dist_adjoint", "validate", "drivers")
 
 
 def main(argv=None):
@@ -3137,6 +3431,7 @@ def main(argv=None):
 
     kres = mres = sres = eres = gres = stres = pres = slab = None
     ares = enres = cres = dres = fres = xres = vres = ref = main_dir = None
+    wres = None
     # ---- 3. bell_spmv vs plain at the bench shapes ----
     from shakti_tpu_torch.setups import setup_bench
     if "kernel" in phases:
@@ -3279,6 +3574,10 @@ def main(argv=None):
               "gradients vs single device and FD")
         with tempfile.TemporaryDirectory() as tmp:
             xres = phase_dist_adjoint(dev, tmp)
+    # ---- 22. the JAX package's drivers at cuts ----
+    if "drivers" in phases:
+        stamp("drivers: the example twins and SHMIP B-F runners at cuts")
+        wres = phase_drivers(dev)
     stamp("done")
 
     if phases != list(PHASES):
@@ -3308,6 +3607,8 @@ def main(argv=None):
             p["launches_backward"]["bell_spmv"] for p in xres["per_rank"]),
         "max_abs_err_dist_adjoint": xres["kernel_check"],
         "launches_validate": vres["launches"],
+        "launches_drivers": wres["launches_drivers"],
+        "max_abs_err_drivers": wres["kernel_check"]["single"],
         "W": kres["W"],
         **{k: f32[k] for k in LINE_KEYS}, "bound_by": f32["bound_by"],
         "float64": {k: kres["float64"][k] for k in LINE_KEYS}}, {
@@ -3316,6 +3617,8 @@ def main(argv=None):
         "replaces": "shakti_tpu/ops/spmv_pallas.py:46 (under jax.vmap: "
                     "shakti_tpu/parallel/ensemble.py:57)",
         "launches": enres["launches"]["bell_spmv_batched"],
+        "launches_drivers": wres["launches"]["bell_spmv_batched"],
+        "max_abs_err_drivers": wres["kernel_check"]["batched"],
         **{k: bat[k] for k in BATCHED_LINE_KEYS}, "bound_by": bat["bound_by"],
         "float64": {k: enres["kernel"]["float64"][k]
                     for k in ("M", "max_abs_err", "max_abs_err_product")}}, {

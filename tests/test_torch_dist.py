@@ -18,7 +18,16 @@
   single-device march: the same steps, accepted and rejected counts, N and
   b within 1e-8; the cycle certificate from its state likewise;
 - on every case every rank ends with bitwise equal Newton and CG counts and
-  residual norms.
+  residual norms;
+- the float32 cold start (the bench model's first step, dt/10, with phase
+  19 (b)'s settings: aggregates of 16, no operator carry): the JAX
+  package's run on 4 simulated devices lies as far from its float64 run
+  as its single-device float32 run does (~25 % of scale in N), in the
+  same direction; the port's 4 ranks do the same, and lie within 8 % of
+  scale of JAX's 4 devices (read 4.2 %; JAX's 4 devices lie 2.8 % from
+  its single device, the port's 5.9 %: float32's own spread at a
+  1-Newton step).  The ranks' error after the cold start is the
+  reference's own.
 """
 
 import dataclasses
@@ -47,6 +56,7 @@ def worlds(tmp_path_factory):
     hs = {P: start_world(f"dist{P}", P, tmp_path_factory.mktemp(f"dist{P}"))
           for P in (2, 4)}
     ref = {P: _jax_jacobi(P) for P in (2, 4)}
+    ref["cold"] = _cold_start()
     return {P: finish_world(h) for P, h in hs.items()}, ref
 
 
@@ -78,6 +88,46 @@ def _jax_jacobi(P):
             "b": np.asarray(g.b)[md.node_iperm],
             "newton": np.asarray(d["newton_iters"]),
             "cg": np.asarray(d["cg_iters"])}
+
+
+def _cold_start():
+    """N after the bench model's first step (the dt/10 cold start) in user
+    order: JAX's float64 and float32 single-device runs and its float32 run
+    on 4 devices, and the port's float32 single-device run, all with phase
+    19 (b)'s settings."""
+    import bench
+    import jax.numpy as jnp
+
+    from shakti_tpu.solve.timestep import make_step_fn as jstep
+    from shakti_tpu.solve.timestep import run_window as jrun
+    from shakti_tpu_torch.setups import setup_bench
+
+    def jmd(dtype):
+        md = bench.build_bench_model()
+        md.dtype = dtype
+        md.solver = dataclasses.replace(md.solver, coarse_block=16,
+                                        lag_operator=False)
+        return md
+
+    out = {}
+    for tag, dtype in (("f64", jnp.float64), ("f32", jnp.float32)):
+        md = jmd(dtype)
+        mesh, static, state, cfg = md.freeze()
+        s, _ = jrun(jstep(mesh, static, md.params, cfg), state,
+                    jdts(md.timesteps, dtype=dtype)[:1])
+        N = np.asarray(s.N, np.float64)
+        out[tag] = N if md.node_iperm is None else N[md.node_iperm]
+    md = jmd(jnp.float32)
+    md.distributed = True
+    runner, st0, plan = jrunner(md, make_device_mesh(4))
+    s, _ = runner(st0, jdts(md.timesteps, dtype=jnp.float32)[:1])
+    out["dist"] = np.asarray(jgather(plan, s).N, np.float64)[md.node_iperm]
+    md = setup_bench.initialize(days=2)
+    md.device, md.dtype = "cpu", torch.float32
+    md.solver = dataclasses.replace(md.solver, coarse_block=16,
+                                    lag_operator=False)
+    out["port"] = np.asarray(_single(1, md)["N"], np.float64)
+    return out
 
 
 def _single(steps, md):
@@ -114,6 +164,37 @@ def test_jacobi_matches_jax(P, world2, world4, jax_jacobi):
     assert (np.abs(r["cg"] - ref["cg"]) <= r["newton"]).all()
     np.testing.assert_allclose(r["N"], ref["N"], rtol=1e-8)
     np.testing.assert_allclose(r["b"], ref["b"], rtol=1e-8)
+
+
+def _error(N, ref):
+    """N's error against ``ref`` in units of max|ref|."""
+    return (N - ref) / np.abs(ref).max()
+
+
+def _alike(e1, e2):
+    """(size ratio, cosine) of two error vectors."""
+    n1, n2 = np.linalg.norm(e1), np.linalg.norm(e2)
+    return n2 / n1, float(e1 @ e2) / (n1 * n2)
+
+
+def test_float32_cold_start_on_the_ranks_as_jax(world4, jax_jacobi):
+    cold = jax_jacobi["cold"]
+    r = _check_counts(case(world4, "cold_f32"))
+    ref = cold["f64"]
+    e = {k: _error(v, ref) for k, v in (("jax1", cold["f32"]),
+                                        ("jax4", cold["dist"]),
+                                        ("port1", cold["port"]),
+                                        ("port4", r["N"]))}
+    for k, v in e.items():
+        assert 0.2 < np.abs(v).max() < 0.3, (k, np.abs(v).max())
+    # JAX's 4 devices against its single device: the same size and
+    # direction, and so the port's 4 ranks against its single device
+    for one, four in (("jax1", "jax4"), ("port1", "port4")):
+        ratio, cos = _alike(e[one], e[four])
+        assert abs(ratio - 1) < 0.1 and cos > 0.99, (one, four, ratio, cos)
+    ratio, cos = _alike(e["jax4"], e["port4"])
+    assert abs(ratio - 1) < 0.1 and cos > 0.99, (ratio, cos)
+    assert np.abs(e["port4"] - e["jax4"]).max() < 0.08
 
 
 def test_bicgstab_matches_single_device(world2):

@@ -19,6 +19,11 @@ CPU, in float64, against the JAX package:
   "storage" each through one backward, an unknown control refused;
 - the gradient under mg on the halo of 4 ranks within 1e-6 of the port's
   single-device mg gradient;
+- on 8 ranks, the 8x8 slab (its last rank owns no cell and keeps one
+  zero-weight padding cell): d(mean owned N)/d(inputs_scale) through 5
+  hourly steps, summed over the ranks, within 1e-6 of JAX's 8-device
+  gradient (tests/test_adjoint.py:116's) and of the port's single
+  device;
 - strict mode (lin_maxiter=1) at P = 3: every rank warns, and with
   SHAKTI_ADJOINT_STRICT=1 every rank's gradient is NaN;
 - every reduction over the ranks given a tensor that requires grad
@@ -53,8 +58,8 @@ MG = dict(precond="mg", mg_agg=4, mg_coarse_cap=16)
 OPS = ("push", "push2", "accumulate", "accumulate3", "split", "localize")
 
 
-def _jmd():
-    md = jslab.initialize(nx=12, ny=12, days=5 / 24.0, nt_per_day=24)
+def _jmd(nx=12):
+    md = jslab.initialize(nx=nx, ny=nx, days=5 / 24.0, nt_per_day=24)
     md.b_init = np.full(md.x.size, 0.01)
     md.solver = dataclasses.replace(md.solver, **ADJ)
     return md
@@ -87,12 +92,31 @@ def _jax_reference():
             "field_g": md.to_user_order(np.asarray(field_g))}
 
 
-def _port_mg_gradient():
-    """The port's single-device d mean(N)/d inputs_scale under MG."""
-    md = tslab.initialize(nx=12, ny=12, days=5 / 24.0, nt_per_day=24)
+def _jax_toy8():
+    """JAX's d mean(N)/d inputs_scale on 8 devices (tests/test_adjoint.py:116)
+    on the 8x8 slab."""
+    from shakti_tpu.parallel.dist import make_distributed_runner
+    from shakti_tpu.parallel.shard import make_device_mesh
+    md = _jmd(nx=8)
+    dts = jdts(md.timesteps, dtype=md.dtype)
+    runner, state0, plan = make_distributed_runner(md, make_device_mesh(8))
+    owned = jnp.asarray(plan["owned_mask"].reshape(-1), md.dtype)
+
+    def loss(scale):
+        out, _ = runner(state0, {"dt": dts,
+                                 "inputs_scale": jnp.full_like(dts, scale)})
+        return jnp.vdot(out.N * owned, owned) / md.x.size
+
+    loss, g = jax.jit(jax.value_and_grad(loss))(jnp.asarray(1.0, md.dtype))
+    return float(loss), float(g)
+
+
+def _port_gradient(nx=12, **solver):
+    """The port's single-device d mean(N)/d inputs_scale."""
+    md = tslab.initialize(nx=nx, ny=nx, days=5 / 24.0, nt_per_day=24)
     md.device, md.dtype = "cpu", torch.float64
     md.b_init = np.full(md.x.size, 0.01)
-    md.solver = dataclasses.replace(md.solver, **ADJ, **MG)
+    md.solver = dataclasses.replace(md.solver, **ADJ, **solver)
     mesh, static, state, cfg = md.freeze()
     dts = timestep_sizes(md.timesteps)
     s = torch.tensor(1.0, dtype=torch.float64, requires_grad=True)
@@ -109,8 +133,18 @@ def worlds(tmp_path_factory):
                          tmp_path_factory.mktemp(f"adjoint{P}"))
           for P in (2, 3, 4)}
     ref = _jax_reference()
-    ref["port_mg_g"] = _port_mg_gradient()
+    ref["port_mg_g"] = _port_gradient(**MG)
     return {P: finish_world(h) for P, h in hs.items()}, ref
+
+
+@pytest.fixture(scope="module")
+def world8(tmp_path_factory):
+    """The 8-rank world on its own, while JAX's 8-device gradient and the
+    port's single-device one compute."""
+    h = start_world("adjoint8", 8, tmp_path_factory.mktemp("adjoint8"))
+    loss, g = _jax_toy8()
+    return finish_world(h), {"loss": loss, "g": g,
+                             "port_g": _port_gradient(nx=8)}
 
 
 @pytest.fixture(scope="module")
@@ -208,6 +242,22 @@ def test_mg_gradient_matches_single_device_port(worlds, jax_ref):
     g = float(_same_on_every_rank(ranks, "g"))
     ref = jax_ref["port_mg_g"]
     assert abs(g - ref) <= 1e-6 * abs(ref), (g, ref)
+
+
+def test_gradient_on_8_ranks_with_a_cell_less_rank(world8):
+    ranks = case(world8[0], "grad_toy")
+    for k in ("newton", "cg", "rnorm", "loss"):
+        _same_on_every_rank(ranks, k)
+    assert ranks[0]["converged"].all()
+    assert int(ranks[-1]["cells"]) == 1            # the padding cell
+    g = float(_same_on_every_rank(ranks, "g"))
+    assert g == pytest.approx(sum(float(r["g_rank"]) for r in ranks),
+                              rel=1e-12)
+    assert float(ranks[-1]["g_rank"]) == 0.0       # it owns no row's N
+    ref = world8[1]
+    assert float(ranks[0]["loss"]) == pytest.approx(ref["loss"], rel=1e-10)
+    for ref in (ref["g"], ref["port_g"]):
+        assert abs(g - ref) <= 1e-6 * abs(ref), (g, ref)
 
 
 def test_strict_mode_on_every_rank(worlds):

@@ -1,7 +1,10 @@
 """The port imports nothing of shakti_tpu and nothing of jax: every module of
 shakti_tpu_torch/, chip_smoke.py and the golden cases it loads,
-torch_ab.py and the port's validation drivers (scripts/torch_*.py), read
-with ``ast``; and a fresh
+torch_ab.py, the port's validation drivers (scripts/torch_*.py) and the
+example twins (examples/torch_*.py), read with ``ast``; the drivers and
+twins import none of the optional libraries at module level (the machine
+with the card lacks them: matplotlib and PIL only inside the legs that
+guard them), and importing every twin loads none; and a fresh
 interpreter that imports every module of the package and runs a small
 model's freeze and one operator matvec ends with neither package loaded,
 none of the optional libraries that only some functions need (h5py,
@@ -28,7 +31,12 @@ SOURCES = sorted(str(p.relative_to(ROOT))
     "chip_smoke.py", "tests/torch_golden_cases.py",  # chip_smoke loads it
     "torch_ab.py", "tests/torch_dist_worker.py"] + sorted(  # a rank's code
     str(p.relative_to(ROOT)) for p in (ROOT / "scripts").glob("torch_*.py"))
+DRIVERS = sorted(str(p.relative_to(ROOT)) for d in ("scripts", "examples")
+                 for p in (ROOT / d).glob("torch_*.py"))
+SOURCES += [p for p in DRIVERS if p.startswith("examples")]
 FORBIDDEN = ("jax", "jaxlib", "shakti_tpu")
+# what the machine with the card lacks (and optax, the JAX examples' own)
+OPTIONAL = ("h5py", "netCDF4", "PIL", "matplotlib", "pyproj", "optax")
 
 
 def _forbidden(name: str) -> bool:
@@ -55,6 +63,34 @@ def test_module_imports_no_jax_or_shakti_tpu(path):
            if _forbidden(m) or m.startswith("<relative")]
     assert not bad, f"{path} imports {bad}"
     assert "libshakti_native" not in src, f"{path} names the native library"
+
+
+@pytest.mark.parametrize("path", DRIVERS)
+def test_driver_imports_no_optional_library_at_module_level(path):
+    tree = ast.parse((ROOT / path).read_text(), path)
+    top = ast.Module(body=[n for n in tree.body if isinstance(
+        n, (ast.Import, ast.ImportFrom, ast.If, ast.Try))], type_ignores=[])
+    bad = [m for m in _imports(top) if m.split(".")[0] in OPTIONAL]
+    assert not bad, f"{path} imports {bad} at module level"
+
+
+_TWINS = """
+import importlib.util, pathlib, sys
+for p in sorted(pathlib.Path("examples").glob("torch_*.py")):
+    spec = importlib.util.spec_from_file_location(p.stem, p)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+print(sorted(m for m in sys.modules if m.split(".")[0] in {names}))
+"""
+
+
+def test_importing_the_twins_loads_no_optional_library():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    names = set(OPTIONAL) | set(FORBIDDEN)
+    r = subprocess.run([sys.executable, "-c", _TWINS.format(names=names)],
+                       cwd=ROOT, env=env, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().splitlines()[-1] == "[]", r.stdout
 
 
 def test_forbidden_names():

@@ -128,6 +128,23 @@ def case_jacobi(rank, P):
     return run_dist(md, 4)
 
 
+def cold_f32_md():
+    """The bench model in float32 with phase 19 (b)'s settings (chip_smoke.py:
+    the global two-level on aggregates of 16, no operator carry), for its
+    first step: the cold start's dt/10."""
+    from shakti_tpu_torch.setups import setup_bench
+    md = setup_bench.initialize(days=2)
+    md.device, md.dtype = "cpu", torch.float32
+    md.solver = dataclasses.replace(md.solver, coarse_block=16,
+                                    lag_operator=False)
+    return md
+
+
+def case_cold_f32(rank, P):
+    """cold_f32_md's first step on the ranks."""
+    return run_dist(cold_f32_md(), 1)
+
+
 def case_bicgstab(rank, P):
     """BiCGStab on the ranks (its fused t.t / t.s reduction), 12x12, 3
     steps, Jacobi."""
@@ -314,9 +331,10 @@ ADJ = dict(adaptive_dt_levels=0, lag_operator=False, rtol=1e-12, atol=1e-13,
            lin_rtol=1e-12, differentiable=True)
 
 
-def adj_md(steps=5, **solver):
-    """The 12x12 slab for ``steps`` hourly steps with a 0.01 m gap, f64."""
-    md = slab(12, days=steps / 24.0, nt_per_day=24)
+def adj_md(steps=5, nx=12, **solver):
+    """The nx x nx slab (12) for ``steps`` hourly steps with a 0.01 m gap,
+    f64."""
+    md = slab(nx, days=steps / 24.0, nt_per_day=24)
     md.b_init = np.full(md.x.size, 0.01)
     md.solver = dataclasses.replace(md.solver, **dict(ADJ, **solver))
     md.distributed = True
@@ -413,6 +431,25 @@ def case_grad_scale(rank, P):
         plain, _ = r0(st00, with_scale(dts, torch.tensor(1.0, dtype=F64)))
         res.update(same_N=torch.equal(out.N, plain.N),
                    same_b=torch.equal(out.b, plain.b))
+    return res
+
+
+def case_grad_toy(rank, P):
+    """d mean(N)/d inputs_scale through 5 hourly steps on the 8 x 8 slab:
+    at P = 8 the last rank owns no cell and keeps one zero-weight padding
+    cell.  The rank's gradient of its partial loss, the rank sum, the
+    rank's cells."""
+    md = adj_md(nx=8)
+    dts = timestep_sizes(md.timesteps)
+    runner, st0, plan = pdist.make_distributed_runner(md)
+    s = torch.tensor(1.0, dtype=F64, requires_grad=True)
+    out, d = runner(st0, with_scale(dts, s))
+    part = part_mean(plan, out.N, md.x.size)
+    part.backward()
+    halo = plan["mesh"].halo
+    res = {"loss": halo.allsum(part.detach()), "g_rank": s.grad,
+           "g": halo.allsum(s.grad), "cells": plan["mesh"].n_cells}
+    res.update(counts(d))
     return res
 
 
@@ -538,7 +575,8 @@ SUITES = {
     "dist2": [case_jacobi, case_bicgstab, case_steady],
     "dist4": [case_jacobi, _formats("bell"), _formats("bcsr"),
               case_two_level, case_two_level_jacobi, case_local_two_level,
-              _mg(), _mg(mg_cycle="w"), _mg(mg_smooth_p=4.0 / 3.0)],
+              _mg(), _mg(mg_cycle="w"), _mg(mg_smooth_p=4.0 / 3.0),
+              case_cold_f32],
     "multihost": [case_solve, case_group, case_written, case_resume,
                   case_seasonal, case_jax_resume, case_cli],
     "imports": [case_modules],
@@ -546,11 +584,12 @@ SUITES = {
     "adjoint2": [case_dot, case_grad_scale, case_field, case_raise],
     "adjoint3": [case_dot, case_controls, case_strict],
     "adjoint4": [case_dot, case_grad_scale, case_mg],
+    "adjoint8": [case_grad_toy],
 }
 # the names of the cases made by a factory
 NAMES = {"parallel": ["halo", "shard", "mg_v"],
          "dist4": ["jacobi", "bell", "bcsr", "two_level", "two_level_jacobi",
-                   "local_two_level", "mg_v", "mg_w", "mg_sp"]}
+                   "local_two_level", "mg_v", "mg_w", "mg_sp", "cold_f32"]}
 
 
 def case_names(suite):
