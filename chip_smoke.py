@@ -222,10 +222,17 @@ Phases (any failure raises: exit code != 0 and no result line):
      24 steps a day from it, D5 for 10 days and F5 for 2 hourly days with
      the degree-day forcing and no spin, E1 for two hourly days on the
      1,316-node valley with the certified budget: every step converged,
-     within 1e-6 of JAX's.  Every bell_spmv launch (single and
-     member-batched) counted, none through a plain version; the kernel
-     held to its plain version (f32 rtol 2e-6, f64 1e-12) on each run's
-     last operator, the batched launch on the ensemble's.
+     within 1e-6 of JAX's, and X (the artesian study) from D5's windows;
+     (c) suite S for A2 and A6 at 60x12 in block-ELL, solve_steady capped
+     at 3 PTC steps and a polish of 2 Newton iterations (verdict and
+     counts as JAX's, the values within 1e-6), the stationarity leg
+     (scripts/torch_valley_stationarity.py) from (b)'s E1 state for a few
+     FV steps (within 1e-5 of JAX's from its own E1 state) and O_ladder at
+     nx = 200 (within 1e-8 of scripts/shmip_results.json).  Every
+     bell_spmv launch (single and member-batched) counted, none through a
+     plain version; the kernel held to its plain version (f32 rtol 2e-6,
+     f64 1e-12) on each run's last operator (S's: its march's), the
+     batched launch on the ensemble's.
 The line before the last is a JSON object with the kernels' numbers; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -2447,7 +2454,7 @@ def drivers_examples(dev, tmp, ref, cuts, ops):
     res, bad = {}, []
     d = str(dev)
     twins = {n: script("torch_" + n, "examples") for n in cuts
-             if n != "shmip"}
+             if n not in ("shmip", "so")}
     ops.run = "calibrate_melt"
     t0 = time.perf_counter()
     cal = twins["calibrate_melt"].main(device=d, **cuts["calibrate_melt"])
@@ -2560,11 +2567,13 @@ def drivers_shmip(dev, ref, cuts, ops):
     if not (m["converged"] and all(_near(m[k], ref["C1"][k], tol)
                                    for k in ("N_mean_cycle", "N_amp_MPa"))):
         bad.append("C1")
+    artesian = []
     for case in ("D5", "F5"):
         c = cuts[case]
         out = timed(case, c["days"] * c["nt_per_day"],
-                    lambda: v.run_seasonal_case(case, spin_years=0, device=d,
-                                                **c))
+                    lambda: v.run_seasonal_case(
+                        case, spin_years=0, device=d,
+                        artesian=artesian if case == "D5" else None, **c))
         samples, conv, qo, qs = out[2:]
         r = ref[case]
         res[case].update(samples=samples.tolist(), converged=conv,
@@ -2574,6 +2583,23 @@ def drivers_shmip(dev, ref, cuts, ops):
                         for a, b in zip(samples, r["samples"]))
                 and _near(qo, r["Q_out"], tol) and _near(qs, r["Q_src"], tol)):
             bad.append(case)
+    # X (the artesian study) from D5's windows: each row's window mean is
+    # the sample, JAX's within tol; the fractions and ratios finite
+    x = v.artesian_summary(artesian, res["D5"]["converged"], 0,
+                           cuts["D5"]["sample_days"])
+    res["X_D5"] = {k: x[k] for k in ("days_any_neg", "days_winmean_neg",
+                                     "frac_neg_max", "N_min_MPa",
+                                     "min_over_pi", "worst_day")}
+    if not (len(artesian) == len(ref["D5"]["samples"])
+            and [a["day"] for a in artesian]
+            == [cuts["D5"]["sample_days"] * (i + 1)
+                for i in range(len(artesian))]
+            and all(_near(a["winmean_MPa"] * 1e6, b, tol)
+                    for a, b in zip(artesian, ref["D5"]["samples"]))
+            and all(np.isfinite([a["frac_neg"], a["N_min_MPa"],
+                                 a["min_over_pi"]]).all()
+                    for a in artesian)):
+        bad.append("X_D5")
     c = cuts["E1"]
     md, st, rel, conv, qo, qs = timed(
         "E1", round(365 * c["years"]) * c["nt_per_day"],
@@ -2584,6 +2610,101 @@ def drivers_shmip(dev, ref, cuts, ops):
     if not (conv and _near(res["E1"]["N_mean_MPa"], r["N_mean_MPa"], tol)
             and _near(qo, r["Q_out"], tol) and _near(qs, r["Q_src"], tol)):
         bad.append("E1")
+    return res, bad, (md, st)
+
+
+# phase 22 (c): suite S's solve_steady capped (tests/torch_examples_ref.py
+# SO_CUTS), the stationarity leg's tolerance against the JAX package's
+# from its own E1 state (the two E1 states part by DRIVER_RTOL["shmip"];
+# the few FV steps carry that over), and O_ladder's against JAX's cached
+# row (scipy alone; the card's host may carry another scipy)
+SO_STATIONARITY_RTOL, SO_LADDER_RTOL = 1e-5, 1e-8
+
+
+def drivers_so(dev, ref, cuts, ops, e1):
+    """Phase 22 (c): suite S for A2 and A6 at 60 x 12 capped at 3 PTC steps
+    and a polish of 2 Newton iterations, in block-ELL, against JAX's row
+    at the same cut (verdict and counts equal, the values within
+    DRIVER_RTOL["shmip"]); the stationarity leg (scripts/
+    torch_valley_stationarity.py) from the E1 state ``e1`` of (b) for a
+    few FV steps against JAX's from its own; O_ladder at nx = 200 against
+    JAX's cached row (scripts/shmip_results.json)."""
+    import functools
+
+    from shakti_tpu_torch.api import steady
+    from shakti_tpu_torch.ops import spmv_cuda
+    v = script("torch_shmip_validate")
+    d, tol, res, bad = str(dev), DRIVER_RTOL["shmip"], {}, []
+    c = cuts["S"]
+    real_init, real_polish, real_save = (v.shmip.initialize,
+                                         steady.steady_polish, v._save_cache)
+
+    def initialize(case, **kw):
+        kw.update(c["init"])
+        md = real_init(case, **kw)
+        solve = md.solve_steady
+
+        def capped(**skw):
+            skw.update(c["cap"])
+            return solve(**skw)
+        md.solve_steady = capped
+        return md
+    v.shmip.initialize, v._save_cache = initialize, (lambda out: None)
+    steady.steady_polish = functools.partial(
+        real_polish, max_newton=c["polish_newton"])
+    try:
+        for case in ("A2", "A6"):
+            ops.run = "S_" + case
+            t0 = time.perf_counter()
+            out = {}
+            before = dict(spmv_cuda.launches)
+            v.suite_S(out, False, force=True, cases=(case,), device=d)
+            # suite_S counts its case's launches from zero: the phase's
+            # launches so far go back on top
+            for k, n in before.items():
+                spmv_cuda.launches[k] += n
+            got, r = out["S_" + case], ref["S_" + case]
+            res["S_" + case] = {k: got[k] for k in (
+                "verdict", "ptc_steps", "newton", "polish_newton",
+                "relN_win", "relb_win", "Q_out", "Q_src")}
+            res["S_" + case]["wall_s"] = sync_s(dev, t0)
+            if not (all(got[k] == r[k] for k in ("verdict", "ptc_steps",
+                                                  "polish_newton"))
+                    and abs(got["newton"] - r["newton"]) <= 1
+                    and all(_near(got[k], r[k], tol) for k in (
+                        "relN_win", "relb_win", "Q_out", "Q_src"))):
+                bad.append("S_" + case)
+    finally:
+        v.shmip.initialize, v._save_cache = real_init, real_save
+        steady.steady_polish = real_polish
+    ops.run = None
+    md, st = e1
+    tvs = script("torch_valley_stationarity")
+    s = cuts["stationarity"]
+    t0 = time.perf_counter()
+    got = tvs.stationarity(np.stack([md.x, md.y], axis=1),
+                           md.to_user_order(st.N), md.to_user_order(st.b),
+                           s["nx"], s["ny"], s["years"], verbose=0)
+    r = ref["stationarity"]
+    keys = ("fem_b_trough_mm", "fv_b_trough_mm_end", "fem_N_trough_MPa",
+            "fv_N_trough_MPa_end", "relN_interior", "relb_interior")
+    res["stationarity"] = dict({k: got[k] for k in keys + ("steps",)},
+                               wall_s=time.perf_counter() - t0)
+    if not (got["steps"] == r["steps"]
+            and all(_near(got[k], r[k], SO_STATIONARITY_RTOL)
+                    for k in keys)):
+        bad.append("stationarity")
+    t0 = time.perf_counter()
+    rows = v.o_ladder_rows(v._fv(), 200)
+    with open(os.path.join(HERE, "scripts", "shmip_results.json")) as f:
+        jl = json.load(f)["O_ladder"]["rows"]
+    res["O_ladder"] = {"wall_s": time.perf_counter() - t0, "max_rel": max(
+        abs(rows[a][k] - jl[a][k]) / abs(jl[a][k])
+        for a in jl for k in ("relN_fv_1d", "relb_fv_1d"))}
+    if not (res["O_ladder"]["max_rel"] <= SO_LADDER_RTOL
+            and all(rows[a]["converged"] == jl[a]["converged"]
+                    and rows[a]["newton"] == jl[a]["newton"] for a in jl)):
+        bad.append("O_ladder")
     return res, bad
 
 
@@ -2601,15 +2722,19 @@ def phase_drivers(dev):
     with tempfile.TemporaryDirectory() as tmp, counted_plain() as plain, \
             driver_operators() as ops:
         ex, bad = drivers_examples(dev, tmp, ref, ref["cuts"], ops)
-        sh, bad_s = drivers_shmip(dev, ref["shmip"], ref["cuts"]["shmip"],
-                                  ops)
-    res = {"examples": ex, "shmip": sh, "launches": dict(spmv_cuda.launches),
-           "plain_calls": dict(plain)}
+        sh, bad_s, e1 = drivers_shmip(dev, ref["shmip"],
+                                      ref["cuts"]["shmip"], ops)
+        so, bad_o = drivers_so(dev, ref["so"], ref["cuts"]["so"], ops, e1)
+    bad_s += bad_o
+    res = {"examples": ex, "shmip": sh, "so": so,
+           "launches": dict(spmv_cuda.launches), "plain_calls": dict(plain)}
     for k, v in ex.items():
         log(f"  (a) {k}: " + json.dumps({a: b for a, b in v.items()
                                           if a not in ("rows", "counts")}))
     for k, v in sh.items():
         log(f"  (b) SHMIP {k}: " + json.dumps(v))
+    for k, v in so.items():
+        log(f"  (c) SHMIP {k}: " + json.dumps(v))
     res["launches_drivers"] = (res["launches"]["bell_spmv"]
                                + res["launches"]["bell_spmv_batched"])
     log(f"  launches {json.dumps(res['launches'])}, plain calls "
@@ -2625,7 +2750,8 @@ def phase_drivers(dev):
         # the ensemble's matvecs are all member-batched launches
         res["kernel_check"] = ops.check(
             dev, [k for k in ex if k not in ("checkpoint", "ensemble_uq")]
-            + list(sh), ["ensemble_uq"])
+            + [k for k in sh if k != "X_D5"] + ["S_A2", "S_A6"],
+            ["ensemble_uq"])
         log("  bell_spmv on each run's last operator against the plain "
             "version: " + json.dumps(res["kernel_check"]))
     res["wall_s"] = time.perf_counter() - t_phase

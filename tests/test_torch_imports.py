@@ -1,7 +1,9 @@
 """The port imports nothing of shakti_tpu and nothing of jax: every module of
 shakti_tpu_torch/, chip_smoke.py and the golden cases it loads,
 torch_ab.py, the port's validation drivers (scripts/torch_*.py) and the
-example twins (examples/torch_*.py), read with ``ast``; the drivers and
+example twins (examples/torch_*.py), read with ``ast``; the drivers
+import none of the JAX package's scripts (each imports jax), and the SHMIP
+twins with the FV oracle load neither; the drivers and
 twins import none of the optional libraries at module level (the machine
 with the card lacks them: matplotlib and PIL only inside the legs that
 guard them), and importing every twin loads none; and a fresh
@@ -89,6 +91,48 @@ def test_importing_the_twins_loads_no_optional_library():
     r = subprocess.run([sys.executable, "-c", _TWINS.format(names=names)],
                        cwd=ROOT, env=env, capture_output=True, text=True,
                        timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().splitlines()[-1] == "[]", r.stdout
+
+
+# the JAX package's drivers (scripts/ other than the twins): each imports
+# jax, or may; a twin imports none of them, by name or by path
+JAX_SCRIPTS = sorted(p.stem for p in (ROOT / "scripts").glob("*.py")
+                     if not p.stem.startswith("torch_"))
+
+
+@pytest.mark.parametrize("path", [p for p in DRIVERS
+                                  if p.startswith("scripts")])
+def test_driver_imports_no_jax_script(path):
+    src = (ROOT / path).read_text()
+    bad = [m for m in _imports(ast.parse(src, path))
+           if m.split(".")[0] in JAX_SCRIPTS]
+    assert not bad, f"{path} imports {bad}"
+    named = [s for s in JAX_SCRIPTS
+             if f'"{s}.py"' in src or f"'{s}.py'" in src]
+    assert not named, f"{path} names {named}"
+
+
+_SHMIP = """
+import importlib.util, sys
+for name in ("torch_shmip_validate", "torch_valley_stationarity"):
+    spec = importlib.util.spec_from_file_location(name, f"scripts/{{name}}.py")
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+v = sys.modules["torch_shmip_validate"]
+v._fv()
+assert callable(v.suite_O) and callable(v.suite_OT) and callable(v.suite_OV)
+assert callable(v.suite_X) and callable(v.suite_S)
+print(sorted(m for m in sys.modules if m.split(".")[0] in {names}))
+"""
+
+
+def test_shmip_twins_load_no_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", _SHMIP.format(
+        names=set(FORBIDDEN) | {"shmip_validate", "valley_stationarity"})],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip().splitlines()[-1] == "[]", r.stdout
 

@@ -10,16 +10,22 @@ port twins (examples/torch_*.py): NOT a test module.
   phase 22 hold the twins to them); ``CUTS``: phase 22's cuts, the JAX
   examples' widths with fewer steps and iterations; ``SHMIP_CUTS``:
   scripts/shmip_validate.py's runners at phase 22's cuts;
-  ``shmip_bf_tests()`` (``--bf-tests``) and ``examples_tests()``
-  (``--examples-tests``): the runners and the examples' code paths at
-  tests/test_torch_shmip_bf.py's and tests/test_torch_examples.py's
-  cuts, run by ``Child`` beside the port's runs.
+  ``shmip_bf_tests()`` (``--bf-tests``), ``so_tests()`` (``--so-tests``)
+  and ``examples_tests()`` (``--examples-tests``): the runners, suite S
+  and the artesian study, and the examples' code paths at
+  tests/test_torch_shmip_bf.py's, test_torch_shmip_so.py's and
+  tests/test_torch_examples.py's cuts, run by ``Child`` beside the port's
+  runs.
 
-    python tests/torch_examples_ref.py [full] [cut] [x64]
+    python tests/torch_examples_ref.py [full] [cut] [x64] [f5] [so-cut]
 
 writes examples/torch_examples_jax_ref.json (full; x64 adds to it
-ensemble_uq's run at its defaults in float64, ``ensemble_uq_x64``) and
-tests/torch_examples_cut_ref.json (cut) from this CPU, in float64 where
+ensemble_uq's run at its defaults in float64, ``ensemble_uq_x64``),
+tests/torch_examples_cut_ref.json (cut; so-cut adds to it suite S and the
+stationarity leg at chip_smoke.py's cuts, ``so``) and
+tests/torch_f5_ref.json (f5: SHMIP F5's first steps from the cold start
+in scalar ELL and in block-ELL, with and without the operator carry,
+``f5_steps``) from this CPU, in float64 where
 the example enables it (calibrate, invert) and float32 elsewhere, as the
 examples run.  Each example runs in a fresh interpreter: ensemble_uq and
 lake_workflow leave jax_enable_x64 off, the others turn it on.
@@ -376,6 +382,193 @@ def shmip_bf_tests():
                  "converged": conv, "Q_out": float(qo), "Q_src": float(qs)}
 
 
+# tests/test_torch_shmip_so.py's cuts: suite S at SO_S_INIT, its
+# solve_steady capped (SO_S_CAP; the polish's segments at SO_POLISH_NEWTON
+# iterations), in block-ELL in both packages; the artesian study on D5 at
+# SO_X_INIT (the JAX package's CPU format, scalar ELL, whose solver order
+# is the user's)
+SO_S_INIT = dict(nx=20, ny=4)
+SO_S_CAP = dict(max_steps=3, cycle_window=0, polish_max_newton=2)
+SO_POLISH_NEWTON = 2
+SO_X_INIT = dict(nx=12, ny=4)
+
+
+def capped_steady(module, init, cap):
+    """Wrap ``module.initialize`` (a setup_shmip): ``init`` replaces its
+    keywords and each model's solve_steady takes ``cap`` over the
+    caller's keywords."""
+    real = module.initialize
+
+    def initialize(case, **kw):
+        kw.update(init)
+        md = real(case, **kw)
+        solve = md.solve_steady
+
+        def capped(**skw):
+            skw.update(cap)
+            return solve(**skw)
+        md.solve_steady = capped
+        return md
+    return initialize
+
+
+def so_tests():
+    """The JAX script's suite S (A2, A6) and suite_artesian at the cuts
+    above in float64: (name, record).  The artesian record holds N after
+    every window it ran (the spin first), in user order."""
+    import functools
+    import types
+
+    import jax
+    jax.config.update("jax_enable_x64", True)
+    import shakti_tpu.solve.monolithic as mono
+    j = by_path(os.path.join("scripts", "shmip_validate.py"),
+                "jax_shmip_validate")
+    j._save_cache = lambda out: None
+    real_init, real_polish = j.shmip.initialize, mono.steady_polish
+    j.shmip.initialize = capped_steady(j.shmip, SO_S_INIT, SO_S_CAP)
+    mono.steady_polish = functools.partial(real_polish,
+                                           max_newton=SO_POLISH_NEWTON)
+    try:
+        for case in ("A2", "A6"):
+            out = {}
+            with bell_format(), contextlib.redirect_stdout(sys.stderr):
+                j.suite_S(out, False, force=True, cases=(case,))
+            yield "S_" + case, out["S_" + case]
+    finally:
+        j.shmip.initialize, mono.steady_polish = real_init, real_polish
+    states = []
+
+    def recorded(f):
+        run = jax.jit(f)
+
+        def call(s, forcing):
+            s, d = run(s, forcing)
+            states.append(np.asarray(s.N).tolist())
+            return s, d
+        return call
+    real_jax = j.jax
+    j.jax = types.SimpleNamespace(jit=recorded, tree_util=jax.tree_util)
+    out = {}
+    with patched(j.shmip, **SO_X_INIT), \
+            contextlib.redirect_stdout(sys.stderr):
+        j.suite_artesian(out, True)
+    j.jax = real_jax
+    yield "artesian_D5", dict(out["artesian_D5"], N=states)
+
+
+# chip_smoke.py phase 22's cuts of suite S (A2, A6 at the suite's 60 x 12,
+# capped as SO_S_CAP) and of the stationarity leg (from the E1 state of
+# SHMIP_CUTS, a few FV steps on the JAX script's 48 x 12 grid)
+SO_CUTS = {"S": dict(init=dict(nx=60, ny=12), cap=SO_S_CAP,
+                     polish_newton=SO_POLISH_NEWTON),
+           "stationarity": dict(nx=48, ny=12, years=2e-4)}
+
+
+def so_at_cut():
+    """The JAX script's suite S for A2 and A6 at SO_CUTS["S"] in block-ELL,
+    and valley_stationarity.main from the E1 state of SHMIP_CUTS at
+    SO_CUTS["stationarity"]."""
+    import functools
+
+    import shakti_tpu.solve.monolithic as mono
+    j = by_path(os.path.join("scripts", "shmip_validate.py"),
+                "jax_shmip_validate")
+    j._save_cache = lambda out: None
+    c = SO_CUTS["S"]
+    real_init, real_polish = j.shmip.initialize, mono.steady_polish
+    j.shmip.initialize = capped_steady(j.shmip, c["init"], c["cap"])
+    mono.steady_polish = functools.partial(real_polish,
+                                           max_newton=c["polish_newton"])
+    out = {}
+    try:
+        with bell_format(), contextlib.redirect_stdout(sys.stderr):
+            j.suite_S(out, False, force=True, cases=("A2", "A6"))
+    finally:
+        j.shmip.initialize, mono.steady_polish = real_init, real_polish
+    res = {k: out[k] for k in ("S_A2", "S_A6")}
+    md, st, _, _, _, _ = j.run_e_case("E1", **SHMIP_CUTS["E1"])
+    vs = by_path(os.path.join("scripts", "valley_stationarity.py"),
+                 "jax_valley_stationarity")
+    xy = np.stack([md.x, md.y], axis=1)
+    vs.fem_e1_state = lambda: (xy, md.to_user_order(st.N),
+                               md.to_user_order(st.b))
+    s = SO_CUTS["stationarity"]
+    with tempfile.TemporaryDirectory() as tmp:
+        vs.OUT = os.path.join(tmp, "out.json")
+        with contextlib.redirect_stdout(sys.stderr):
+            vs.main(s["nx"], s["ny"], s["years"])
+        with open(vs.OUT) as f:
+            res["stationarity"] = json.load(f)
+    return res
+
+
+def write_so_cut():
+    """so_at_cut() into CUT_JSON as ``so``, its cuts under cuts.so."""
+    with open(CUT_JSON) as f:
+        rec = json.load(f)
+    rec["so"] = _in_child("cut", "so")
+    rec["cuts"]["so"] = SO_CUTS
+    print("so", json.dumps(rec["so"])[:400], flush=True)
+    with open(CUT_JSON, "w") as f:
+        json.dump(rec, f, indent=1)
+        f.write("\n")
+
+
+# tests/test_torch_f5_{ell,bell}.py's run: SHMIP F5 on the valley at 300 m,
+# 12 steps a day from the cold start, a window of one step at a time
+F5_INIT = dict(days=2, resolution=300.0, nt_per_day=12)
+F5_STEPS = 5
+F5_JSON = os.path.join(ROOT, "tests", "torch_f5_ref.json")
+
+
+def f5_steps(operator, steps=F5_STEPS):
+    """F5 at F5_INIT in float64 in ``operator``'s format ("ell", "bell", or
+    "bell_nolag": block-ELL with the operator carry off), ``steps``
+    single-step windows: per step the Newton and CG counts, ``converged``
+    and N in user order."""
+    import jax
+    jax.config.update("jax_enable_x64", True)
+    import setups.setup_shmip as shmip
+    from shakti_tpu.solve.timestep import (make_forcing, make_step_fn,
+                                           run_window)
+    md = shmip.initialize("F5", **F5_INIT)
+    md.operator = operator.removesuffix("_nolag")
+    if operator.endswith("_nolag"):
+        md.solver = dataclasses.replace(md.solver, lag_operator=False)
+    mesh, static, state, cfg = md.freeze()
+    step = make_step_fn(mesh, static, md.params, cfg)
+    forcing = make_forcing(md.timesteps, dtype=md.dtype,
+                           degree_day=md.degree_day)
+    runner = jax.jit(lambda s, f: run_window(step, s, f))
+    rows = []
+    for k in range(steps):
+        state, d = runner(state, jax.tree_util.tree_map(
+            lambda a: a[k:k + 1], forcing))
+        rows.append({"newton": int(np.asarray(d["newton_iters"])[0]),
+                     "cg": int(np.asarray(d["cg_iters"])[0]),
+                     "converged": bool(np.asarray(d["converged"])[0]),
+                     "N": md.to_user_order(state.N).tolist()})
+    return {"operator": operator, "dtype": str(md.dtype),
+            "n_nodes": int(md.x.size), "steps": rows}
+
+
+def write_f5():
+    """f5_steps in both formats, each in a fresh interpreter, into
+    F5_JSON."""
+    rec = {"what": "the JAX package's SHMIP F5 at tests/torch_examples_ref"
+                   ".py's F5_INIT, single-step windows from the cold start",
+           "written_by": "python tests/torch_examples_ref.py f5",
+           "init": F5_INIT}
+    for op in ("ell", "bell", "bell_nolag"):
+        rec[op] = _in_child("f5", op)
+        print(op, json.dumps([{k: v for k, v in r.items() if k != "N"}
+                              for r in rec[op]["steps"]]), flush=True)
+    with open(F5_JSON, "w") as f:
+        json.dump(rec, f)
+        f.write("\n")
+
+
 # tests/test_torch_examples.py's cuts
 TEST_CUTS = {
     "calibrate_melt": dict(nx=8, ny=8, days=2 / 16, nt_per_day=16,
@@ -436,7 +629,8 @@ class Child:
 AT_CUT = {"calibrate_melt": calibrate_at_cut,
           "invert_melt_field": invert_at_cut,
           "ensemble_uq": ensemble_at_cut, "lake_workflow": lake_at_cut,
-          "basin_pipeline": basin_at_cut, "shmip": shmip_at_cut}
+          "basin_pipeline": basin_at_cut, "shmip": shmip_at_cut,
+          "so": so_at_cut}
 
 
 def at_cut(name, **cut):
@@ -537,6 +731,10 @@ def write_x64():
 def write(kind):
     if kind == "x64":
         return write_x64()
+    if kind == "f5":
+        return write_f5()
+    if kind == "so-cut":
+        return write_so_cut()
     path = FULL_JSON if kind == "full" else CUT_JSON
     rec = {"what": ("the JAX examples' main() at their defaults, printed "
                     "numbers parsed" if kind == "full" else
@@ -544,8 +742,8 @@ def write(kind):
                     "torch_examples_ref.py's CUTS, full precision"),
            "written_by": "python tests/torch_examples_ref.py " + kind}
     if kind == "cut":
-        rec["cuts"] = dict(CUTS, shmip=SHMIP_CUTS)
-    for name in NAMES + (("shmip",) if kind == "cut" else ()):
+        rec["cuts"] = dict(CUTS, shmip=SHMIP_CUTS, so=SO_CUTS)
+    for name in NAMES + (("shmip", "so") if kind == "cut" else ()):
         rec[name] = _in_child(kind, name)
         print(name, json.dumps({k: v for k, v in rec[name].items()
                                 if k not in ("stdout", "theta", "rows")}),
@@ -556,17 +754,19 @@ def write(kind):
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] in (["--bf-tests"], ["--examples-tests"]):
+    if sys.argv[1:] in (["--bf-tests"], ["--examples-tests"],
+                        ["--so-tests"]):
         # a JSON line per run as it ends (Child)
-        runs = (shmip_bf_tests() if sys.argv[1] == "--bf-tests"
-                else examples_tests())
+        runs = {"--bf-tests": shmip_bf_tests, "--so-tests": so_tests,
+                "--examples-tests": examples_tests}[sys.argv[1]]()
         for name, rec in runs:
             print(json.dumps({name: rec}), flush=True)
     elif sys.argv[1:2] == ["--one"]:
         kind, name = sys.argv[2:4]
         with (bell_format() if name in BELL else contextlib.nullcontext()):
             res = (full_one(name) if kind == "full" else ensemble_x64()
-                   if kind == "x64" else at_cut(name))
+                   if kind == "x64" else f5_steps(name) if kind == "f5"
+                   else at_cut(name))
         print("\n" + json.dumps(res))
     else:
         for kind in sys.argv[1:] or ("full", "cut"):
