@@ -23,6 +23,7 @@ from shakti_tpu_torch.solve.newton import newton_solve_batched
 from shakti_tpu_torch.solve.timestep import (State, explicit_update,
                                              forcing_terms, newton_guess,
                                              run_window)
+from shakti_tpu_torch.utils.trace import span
 
 _FIELDS = ("N", "b", "q", "melt", "N_prev")
 
@@ -77,23 +78,24 @@ def make_ensemble_step_fn(mesh, static, params, cfg):
                                 mesh.nodes.dtype)
 
     def step(state: State, forcing):
-        dt, dt_b, sq_t = forcing_terms(sq, forcing)
-        pre = res.StepPre(*torch.func.vmap(
-            lambda N, b, q, melt: res.pre_values(res.precompute_step(
-                mesh, N, b, q, melt, static, dt, p, cfg.quad_degree,
-                sq=sq_t)))(state.N, state.b, state.q, state.melt))
-        N, stats = newton_solve_batched(
-            newton_guess(state, cfg), pre, mesh, static.dirichlet,
-            static.N_bdry, p, cfg, N_ref=state.N)
-        q, melt, b = torch.func.vmap(
-            lambda N_, b_, q_, m_: explicit_update(mesh, static, p, N_, b_,
-                                                   q_, m_, dt_b))(
-            N, state.b, state.q, state.melt)
-        new_state = State(N=N, b=b, q=q, melt=melt, N_prev=state.N)
-        diag = {"newton_iters": stats["iters"], "rnorm": stats["rnorm"],
-                "rnorm0": stats["rnorm0"], "converged": stats["converged"],
-                "cg_iters": stats["cg_iters"]}
-        return new_state, diag
+        with span("step"):
+            dt, dt_b, sq_t = forcing_terms(sq, forcing)
+            pre = res.StepPre(*torch.func.vmap(
+                lambda N, b, q, melt: res.pre_values(res.precompute_step(
+                    mesh, N, b, q, melt, static, dt, p, cfg.quad_degree,
+                    sq=sq_t)))(state.N, state.b, state.q, state.melt))
+            N, stats = newton_solve_batched(
+                newton_guess(state, cfg), pre, mesh, static.dirichlet,
+                static.N_bdry, p, cfg, N_ref=state.N)
+            q, melt, b = torch.func.vmap(
+                lambda N_, b_, q_, m_: explicit_update(mesh, static, p, N_, b_,
+                                                       q_, m_, dt_b))(
+                N, state.b, state.q, state.melt)
+            new_state = State(N=N, b=b, q=q, melt=melt, N_prev=state.N)
+            diag = {"newton_iters": stats["iters"], "rnorm": stats["rnorm"],
+                    "rnorm0": stats["rnorm0"], "converged": stats["converged"],
+                    "cg_iters": stats["cg_iters"]}
+            return new_state, diag
 
     out = step
     for lvl in range(cfg.adaptive_dt_levels):

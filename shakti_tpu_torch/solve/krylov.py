@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from shakti_tpu_torch.utils.trace import counts
+
 
 def dot(a, b, dim=None):
     return torch.sum(a * b, dim=dim)
@@ -69,6 +71,7 @@ def pcg(matvec, b, minv=None, x0=None, *, rtol=1e-8, atol=0.0, maxiter=1000,
         p = z + beta * p
         rz = rz_new
         k += 1
+        counts["krylov.trips"] += 1
     resnorm = float(rnorm)
     return x, {"iters": k, "resnorm": resnorm, "converged": resnorm <= tol}
 
@@ -107,6 +110,7 @@ def bicgstab(matvec, b, minv=None, x0=None, *, rtol=1e-8, atol=0.0,
         r = s - omega * t
         rho = rho_new
         k += 1
+        counts["krylov.trips"] += 1
     resnorm = float(norm(r))
     return x, {"iters": k, "resnorm": resnorm, "converged": resnorm <= tol}
 
@@ -148,6 +152,7 @@ def pcg_batched(matvec, b, minv=None, *, rtol=1e-8, atol=0.0, maxiter=1000,
         rz = torch.where(live, rz_new, rz)
         k = k + live
         live = _live(live, r, tol, k, maxiter)
+        counts["krylov.trips"] += 1
     resnorm = norm(r, dim=-1).double()
     return x, {"iters": k, "resnorm": resnorm, "converged": resnorm <= tol}
 
@@ -193,6 +198,7 @@ def bicgstab_batched(matvec, b, minv=None, *, rtol=1e-8, atol=0.0,
         omega = torch.where(live, omega_new, omega)
         k = k + live
         live = _live(live, r, tol, k, maxiter)
+        counts["krylov.trips"] += 1
     resnorm = norm(r, dim=-1).double()
     return x, {"iters": k, "resnorm": resnorm, "converged": resnorm <= tol}
 

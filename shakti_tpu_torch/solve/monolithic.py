@@ -37,7 +37,6 @@ from typing import Any
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from shakti_tpu_torch.fem import ops
 from shakti_tpu_torch.fem.p1 import quadrature
@@ -45,6 +44,7 @@ from shakti_tpu_torch.params import PhysicalParams
 from shakti_tpu_torch.physics import constitutive as law
 from shakti_tpu_torch.physics import residual as res
 from shakti_tpu_torch.solve.krylov import bicgstab
+from shakti_tpu_torch.utils.trace import span
 
 YEAR = 3.1536e7
 
@@ -498,9 +498,9 @@ def polish(mesh, static, params: PhysicalParams, state, *,
         dbdw = itr(u[:, 1]) if log_b else torch.ones_like(u[:, 1])
         extra = -lumped * inv_dtau * dbdw
         if linear == "direct":
-            with record_function("polish.jacobian"):
+            with span("polish.jacobian"):
                 A = _colored_jacobian(raw_residual, u, color_plan, dtype)
-            with record_function("polish.lu"):
+            with span("polish.lu"):
                 du, kinfo = _dense_solve_A(A, masks, fix_b, rb_scale, R,
                                            dtype, extra_diag_b=extra)
         else:
@@ -514,7 +514,7 @@ def polish(mesh, static, params: PhysicalParams, state, *,
             du, kinfo = bicgstab(mv, -R, minv=pc, rtol=krylov_rtol,
                                  maxiter=krylov_maxiter)
 
-        with record_function("polish.armijo"):
+        with span("polish.armijo"):
             # every rung of the ladder at once, the elementwise trust
             # region on b applied; the first rung that descends is taken
             norm_old = merit(RN, Rb)

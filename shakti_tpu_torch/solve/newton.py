@@ -25,6 +25,7 @@ import torch
 from shakti_tpu_torch.physics import residual as res
 from shakti_tpu_torch.solve import krylov
 from shakti_tpu_torch.solve import precond as pc
+from shakti_tpu_torch.utils.trace import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,22 +102,24 @@ def linear_operator(J_c, mesh, dirichlet, cfg: NewtonConfig):
     with it.  The Newton iteration without the carry calls it with J, the
     adjoint (solve/implicit.py) with J's transposed blocks."""
     vals = None
-    if res.has_values(mesh):
-        vals = res.fold_operator_values(J_c, mesh)
-        a_diag = res.operator_diag_from_values(vals, mesh)
-    else:
-        a_diag = -res.jacobian_diag(J_c, mesh)
-    extra = diag_floor_extra(a_diag, dirichlet, mesh, cfg.diag_floor_rel)
-    if vals is not None:
-        matvec = res.operator_from_values(vals, mesh, dirichlet, extra)
-    else:
-        matvec = res.make_matvec(J_c, mesh, dirichlet, extra)
-    minv = pc.make_preconditioner(
-        cfg.precond, mesh, dirichlet, a_diag + extra, cfg.coarse_block,
-        vals=vals, J_c=J_c, matvec=matvec, mg_omega=cfg.mg_omega,
-        mg_smoother=cfg.mg_smoother, mg_cheb_deg=cfg.mg_cheb_deg,
-        mg_cheb_frac=cfg.mg_cheb_frac, mg_cycle=cfg.mg_cycle,
-        mg_smooth_p=cfg.mg_smooth_p)
+    with span("newton.fold"):
+        if res.has_values(mesh):
+            vals = res.fold_operator_values(J_c, mesh)
+            a_diag = res.operator_diag_from_values(vals, mesh)
+        else:
+            a_diag = -res.jacobian_diag(J_c, mesh)
+        extra = diag_floor_extra(a_diag, dirichlet, mesh, cfg.diag_floor_rel)
+        if vals is not None:
+            matvec = res.operator_from_values(vals, mesh, dirichlet, extra)
+        else:
+            matvec = res.make_matvec(J_c, mesh, dirichlet, extra)
+    with span("newton.precond"):
+        minv = pc.make_preconditioner(
+            cfg.precond, mesh, dirichlet, a_diag + extra, cfg.coarse_block,
+            vals=vals, J_c=J_c, matvec=matvec, mg_omega=cfg.mg_omega,
+            mg_smoother=cfg.mg_smoother, mg_cheb_deg=cfg.mg_cheb_deg,
+            mg_cheb_frac=cfg.mg_cheb_frac, mg_cycle=cfg.mg_cycle,
+            mg_smooth_p=cfg.mg_smooth_p)
     return matvec, minv
 
 
@@ -172,8 +175,9 @@ def newton_solve(N_init, pre, mesh, dirichlet, dirichlet_value, params,
                  else (None, krylov.norm))
 
     def resid(N):
-        return torch.where(dirichlet, 0.0,
-                           res.assemble_residual(N, pre, mesh, params))
+        with span("newton.residual"):
+            return torch.where(dirichlet, 0.0,
+                               res.assemble_residual(N, pre, mesh, params))
 
     N0 = torch.where(dirichlet, dirichlet_value, N_init)
     Nr = N0 if N_ref is None else torch.where(dirichlet, dirichlet_value, N_ref)
@@ -188,10 +192,11 @@ def newton_solve(N_init, pre, mesh, dirichlet, dirichlet_value, params,
     # and the roundoff-sensitivity probe r(N + eps|N|) (the floor below
     # which no representable update can reduce the residual)
     sign = 1.0 - 2.0 * (torch.arange(N0.shape[0], device=N0.device) % 2).to(N0.dtype)
-    cols = res.assemble_residual_multi(
-        torch.stack([Nr, N0, Nr + eps * torch.abs(Nr) * sign], dim=1),
-        pre, mesh, params)
-    cols = torch.where(dirichlet[:, None], 0.0, cols)
+    with span("newton.residual"):
+        cols = res.assemble_residual_multi(
+            torch.stack([Nr, N0, Nr + eps * torch.abs(Nr) * sign], dim=1),
+            pre, mesh, params)
+        cols = torch.where(dirichlet[:, None], 0.0, cols)
     r_ref, r0 = cols[:, 0], cols[:, 1]
     floor_b = float(norm(cols[:, 2] - r_ref))
     floor_age_this = 0
@@ -205,16 +210,19 @@ def newton_solve(N_init, pre, mesh, dirichlet, dirichlet_value, params,
         return rnorm < atol_eff or rnorm <= cfg.rtol * rscale
 
     def build_op(N):
-        J_c = res.element_jacobian(N, pre, mesh, params)
-        vals = res.fold_operator_values(J_c, mesh)
-        a_diag = res.operator_diag_from_values(vals, mesh)
+        with span("newton.jacobian"):
+            J_c = res.element_jacobian(N, pre, mesh, params)
+        with span("newton.fold"):
+            vals = res.fold_operator_values(J_c, mesh)
+            a_diag = res.operator_diag_from_values(vals, mesh)
         A_inv = None
         if use_two_level:
-            A_inv = (pc.coarse_from_values(vals, mesh, dirichlet,
-                                           cfg.coarse_block)
-                     if pc.vals_coarse_ok(mesh, cfg.coarse_block)
-                     else pc.coarse_inverse(J_c, mesh, dirichlet,
-                                            cfg.coarse_block))
+            with span("newton.precond"):
+                A_inv = (pc.coarse_from_values(vals, mesh, dirichlet,
+                                               cfg.coarse_block)
+                         if pc.vals_coarse_ok(mesh, cfg.coarse_block)
+                         else pc.coarse_inverse(J_c, mesh, dirichlet,
+                                                cfg.coarse_block))
         return (True, 0, vals, a_diag, A_inv, floor_b, floor_age_this)
 
     s = dict(N=N0, r=r0, rnorm=rnorm0, N_best=N0, rn_best=rnorm0, stall=0,
@@ -228,27 +236,33 @@ def newton_solve(N_init, pre, mesh, dirichlet, dirichlet_value, params,
     def iterate(reuse_op: bool):
         N, rnorm = s["N"], s["rnorm"]
         if not lag_on:
-            matvec, minv = linear_operator(
-                res.element_jacobian(N, pre, mesh, params), mesh, dirichlet,
-                cfg)
+            with span("newton.jacobian"):
+                J_c = res.element_jacobian(N, pre, mesh, params)
+            matvec, minv = linear_operator(J_c, mesh, dirichlet, cfg)
         else:
             # iteration 0 reuses the carried operator; later ones rebuild
             # it at the current iterate and refresh the carry
             if not reuse_op:
                 s["op"] = build_op(N)
             _, _, vals, a_diag, A_inv, _, _ = s["op"]
-            extra = diag_floor_extra(a_diag, dirichlet, mesh,
-                                     cfg.diag_floor_rel)
-            matvec = res.operator_from_values(vals, mesh, dirichlet, extra)
-            a_diag = a_diag + extra
-            minv = (pc.two_level_from_inverse(A_inv, a_diag, dirichlet,
-                                              cfg.coarse_block, mesh.n_nodes)
-                    if use_two_level
-                    else pc.make_jacobi(a_diag, dirichlet, tiny))
-        dN, lin_info = lin_solve(matvec, s["r"], minv, rtol=cfg.lin_rtol,
-                                 atol=0.1 * atol_eff, maxiter=cfg.lin_maxiter,
-                                 dot=dot, norm=None if halo is None else norm,
-                                 dots=None if halo is None else halo.dots)
+            with span("newton.fold"):
+                extra = diag_floor_extra(a_diag, dirichlet, mesh,
+                                         cfg.diag_floor_rel)
+                matvec = res.operator_from_values(vals, mesh, dirichlet,
+                                                  extra)
+                a_diag = a_diag + extra
+            with span("newton.precond"):
+                minv = (pc.two_level_from_inverse(A_inv, a_diag, dirichlet,
+                                                  cfg.coarse_block,
+                                                  mesh.n_nodes)
+                        if use_two_level
+                        else pc.make_jacobi(a_diag, dirichlet, tiny))
+        with span("krylov"):
+            dN, lin_info = lin_solve(
+                matvec, s["r"], minv, rtol=cfg.lin_rtol, atol=0.1 * atol_eff,
+                maxiter=cfg.lin_maxiter, dot=dot,
+                norm=None if halo is None else norm,
+                dots=None if halo is None else halo.dots)
         a = cfg.relaxation
         N_new = N + a * dN
         r = resid(N_new)
@@ -338,16 +352,18 @@ def newton_solve_batched(N_init, pre, mesh, dirichlet, dirichlet_value,
         return krylov.norm(x, dim=-1).double()
 
     def resid(N):
-        return torch.where(dirichlet, 0.0, v_resid(N, *vals_pre))
+        with span("newton.residual"):
+            return torch.where(dirichlet, 0.0, v_resid(N, *vals_pre))
 
     N0 = torch.where(dirichlet, dirichlet_value, N_init)
     Nr = N0 if N_ref is None else torch.where(dirichlet, dirichlet_value, N_ref)
     fi = torch.finfo(N0.dtype)
     tiny, eps = fi.tiny, fi.eps
     sign = 1.0 - 2.0 * (torch.arange(N0.shape[-1], device=N0.device) % 2).to(N0.dtype)
-    cols = v_multi(torch.stack([Nr, N0, Nr + eps * torch.abs(Nr) * sign],
-                               dim=-1), *vals_pre)
-    cols = torch.where(dirichlet[:, None], 0.0, cols)
+    with span("newton.residual"):
+        cols = v_multi(torch.stack([Nr, N0, Nr + eps * torch.abs(Nr) * sign],
+                                   dim=-1), *vals_pre)
+        cols = torch.where(dirichlet[:, None], 0.0, cols)
     r_ref, r0 = cols[..., 0], cols[..., 1]
     floor_b = norm(cols[..., 2] - r_ref)
     rnorm_ref, rnorm0 = norm(r_ref), norm(r0)
@@ -371,31 +387,36 @@ def newton_solve_batched(N_init, pre, mesh, dirichlet, dirichlet_value,
 
     running = running_fn()
     while bool(running.any()):
-        J_c = v_jac(N, *vals_pre)
+        with span("newton.jacobian"):
+            J_c = v_jac(N, *vals_pre)
         vals = None
-        if res.has_values(mesh):
-            vals = torch.func.vmap(
-                lambda J: res.fold_operator_values(J, mesh))(J_c)
-            a_diag = torch.func.vmap(
-                lambda v: res.operator_diag_from_values(v, mesh))(vals)
-        else:
-            a_diag = -torch.func.vmap(
-                lambda J: res.jacobian_diag(J, mesh))(J_c)
-        extra = torch.func.vmap(lambda a: diag_floor_extra(
-            a, dirichlet, mesh, cfg.diag_floor_rel))(a_diag)
-        matvec = res.batched_operator(vals, J_c, mesh, dirichlet, extra)
-        a_diag = a_diag + extra
-        matvecs = (res.member_operators(vals, J_c, mesh, dirichlet, extra)
-                   if cfg.precond == "mg" and mesh.mg is not None else None)
-        minv = pc.make_preconditioner_batched(
-            cfg.precond, mesh, dirichlet, a_diag, cfg.coarse_block,
-            vals=vals, J_c=J_c, matvecs=matvecs, mg_omega=cfg.mg_omega,
-            mg_smoother=cfg.mg_smoother, mg_cheb_deg=cfg.mg_cheb_deg,
-            mg_cheb_frac=cfg.mg_cheb_frac, mg_cycle=cfg.mg_cycle,
-            mg_smooth_p=cfg.mg_smooth_p)
-        dN, lin_info = lin_solve(matvec, r, minv, rtol=cfg.lin_rtol,
-                                 atol=0.1 * atol_eff, maxiter=cfg.lin_maxiter,
-                                 active=running)
+        with span("newton.fold"):
+            if res.has_values(mesh):
+                vals = torch.func.vmap(
+                    lambda J: res.fold_operator_values(J, mesh))(J_c)
+                a_diag = torch.func.vmap(
+                    lambda v: res.operator_diag_from_values(v, mesh))(vals)
+            else:
+                a_diag = -torch.func.vmap(
+                    lambda J: res.jacobian_diag(J, mesh))(J_c)
+            extra = torch.func.vmap(lambda a: diag_floor_extra(
+                a, dirichlet, mesh, cfg.diag_floor_rel))(a_diag)
+            matvec = res.batched_operator(vals, J_c, mesh, dirichlet, extra)
+            a_diag = a_diag + extra
+            matvecs = (res.member_operators(vals, J_c, mesh, dirichlet, extra)
+                       if cfg.precond == "mg" and mesh.mg is not None
+                       else None)
+        with span("newton.precond"):
+            minv = pc.make_preconditioner_batched(
+                cfg.precond, mesh, dirichlet, a_diag, cfg.coarse_block,
+                vals=vals, J_c=J_c, matvecs=matvecs, mg_omega=cfg.mg_omega,
+                mg_smoother=cfg.mg_smoother, mg_cheb_deg=cfg.mg_cheb_deg,
+                mg_cheb_frac=cfg.mg_cheb_frac, mg_cycle=cfg.mg_cycle,
+                mg_smooth_p=cfg.mg_smooth_p)
+        with span("krylov"):
+            dN, lin_info = lin_solve(matvec, r, minv, rtol=cfg.lin_rtol,
+                                     atol=0.1 * atol_eff,
+                                     maxiter=cfg.lin_maxiter, active=running)
         # the step length per member: float64 for the tests (as the single
         # solve's Python floats), the iterate's type for the update
         a = torch.full((M,), float(cfg.relaxation), dtype=torch.float64,

@@ -30,6 +30,7 @@ from shakti_tpu_torch.physics import constitutive as law
 from shakti_tpu_torch.physics import residual as res
 from shakti_tpu_torch.solve.implicit import make_implicit_solver
 from shakti_tpu_torch.solve.newton import NewtonConfig, check_config, newton_solve
+from shakti_tpu_torch.utils.trace import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -187,31 +188,33 @@ def make_step_fn(mesh, static: StaticFields, params: PhysicalParams,
                                               static.N_bdry, params, cfg)
 
     def step(state: State, forcing):
-        dt, dt_b, sq_t = forcing_terms(sq, forcing)
-        # ---- 1. implicit solve for N ----
-        pre = res.precompute_step(mesh, state.N, state.b, state.q, state.melt,
-                                  static, dt, p, cfg.quad_degree, sq=sq_t)
-        guess = newton_guess(state, cfg)
-        if implicit_solve is not None:
-            N, stats = implicit_solve(guess, state.N, pre)
-        else:
-            N, stats = newton_solve(guess, pre, mesh, static.dirichlet,
-                                    static.N_bdry, p, cfg, N_ref=state.N,
-                                    lag=state.lag_op if cfg.lag_operator
-                                    else None)
-        if cfg.lag_operator:
-            ok, age, vals, a_diag, A_inv, floor, fage = stats.pop("lag")
-            lag_out = (ok, age + 1, vals, a_diag, A_inv, floor, fage + 1)
-        else:
-            lag_out = state.lag_op
-        q, melt, b = explicit_update(mesh, static, p, N, state.b, state.q,
-                                     state.melt, dt_b, b_update)
-        new_state = State(N=N, b=b, q=q, melt=melt, N_prev=state.N,
-                          lag_op=lag_out)
-        diag = {"newton_iters": stats["iters"], "rnorm": stats["rnorm"],
-                "rnorm0": stats["rnorm0"], "converged": stats["converged"],
-                "cg_iters": stats["cg_iters"]}
-        return new_state, diag
+        with span("step"):
+            dt, dt_b, sq_t = forcing_terms(sq, forcing)
+            # ---- 1. implicit solve for N ----
+            pre = res.precompute_step(mesh, state.N, state.b, state.q,
+                                      state.melt, static, dt, p,
+                                      cfg.quad_degree, sq=sq_t)
+            guess = newton_guess(state, cfg)
+            if implicit_solve is not None:
+                N, stats = implicit_solve(guess, state.N, pre)
+            else:
+                N, stats = newton_solve(guess, pre, mesh, static.dirichlet,
+                                        static.N_bdry, p, cfg, N_ref=state.N,
+                                        lag=state.lag_op if cfg.lag_operator
+                                        else None)
+            if cfg.lag_operator:
+                ok, age, vals, a_diag, A_inv, floor, fage = stats.pop("lag")
+                lag_out = (ok, age + 1, vals, a_diag, A_inv, floor, fage + 1)
+            else:
+                lag_out = state.lag_op
+            q, melt, b = explicit_update(mesh, static, p, N, state.b, state.q,
+                                         state.melt, dt_b, b_update)
+            new_state = State(N=N, b=b, q=q, melt=melt, N_prev=state.N,
+                              lag_op=lag_out)
+            diag = {"newton_iters": stats["iters"], "rnorm": stats["rnorm"],
+                    "rnorm0": stats["rnorm0"], "converged": stats["converged"],
+                    "cg_iters": stats["cg_iters"]}
+            return new_state, diag
 
     out = step
     for lvl in range(cfg.adaptive_dt_levels):
