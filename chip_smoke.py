@@ -6,8 +6,9 @@
 Phases (any failure raises: exit code != 0 and no result line):
   1. the card: torch.cuda must be available; prints its name and
      nvidia-smi's name/power limit;
-  2. build: compiles csrc/bell_spmv.cu and csrc/ell_spmv.cu with nvcc for
-     sm_90a, one nvcc per source, started together;
+  2. build: compiles csrc/bell_spmv.cu, csrc/ell_spmv.cu and
+     csrc/element_batched.cu with nvcc for sm_90a, one nvcc per source,
+     started together;
   3. bell_spmv vs plain: the block-ELL operator kernel (the structural
      nonzeros of vals, with and without the fused Dirichlet/diagonal-floor
      epilogue) on the bench operator (Cook_E2 mesh, NB 96, KB 11, B 128,
@@ -233,12 +234,22 @@ Phases (any failure raises: exit code != 0 and no result line):
      plain version; the kernel held to its plain version (f32 rtol 2e-6,
      f64 1e-12) on each run's last operator (S's: its march's), the
      batched launch on the ensemble's.
+ 23. element: the ensemble's element kernels (csrc/element_batched.cu,
+     ops/element_cuda.py) at cooke2-ens128's shapes: setup_cooke2 on the
+     Cook_E2 mesh, 128 members stepped twice in float32 (the launches of
+     both libraries counted), then at that state in float32 and float64
+     the Jacobian and the 3-column residual against the plain twin (1e-5
+     / 1e-12 of the largest entry: FMA contraction and the quadrature
+     sums' order), each column bitwise a 1-column launch, the node sum
+     bitwise the twin's, two launches bitwise equal; in float32 each
+     launch's device time beside its bytes bound, the twin's time and the
+     forward-AD route's (vmap of physics/residual's functions, the route
+     the batched Newton solve took before).
 The line before the last is a JSON object with the kernels' numbers; the
 last line is {"ok": true, "device": {...}}.
 """
 
 import argparse
-import concurrent.futures
 import importlib.util
 import json
 import os
@@ -1998,6 +2009,206 @@ def phase_ensemble(dev, md32=None, md64=None, steps=24, steps64=4, M=8,
     return res
 
 
+# ---- phase 23: the ensemble's element kernels (csrc/element_batched.cu) --
+# the kernels against their plain twin, as a share of the largest entry:
+# float64 1e-12; float32 1e-5, because nvcc contracts each product and sum
+# into an FMA (one rounding where the twin rounds twice) and the quadrature
+# sums accumulate those differences over 6 points
+ELEMENT_TOLS = {torch.float32: 1e-5, torch.float64: 1e-12}
+
+
+def element_bounds(mesh, M, nq, dtype, k):
+    """The bytes bound (ms at 3.35 TB/s) of each launch of
+    csrc/element_batched.cu and of one residual call: per member and cell
+    the fields a kernel reads (the Jacobian T_q, q_q, b_q; the residual
+    those, mdiff_q and N_n) and what it writes, N or X and the result per
+    member and node, the shared fields and the geometry once.  The
+    residual call's bound leaves out the corner contributions, which the
+    two passes write and read back."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    c, n, S = mesh.n_cells, mesh.n_nodes, mesh.inc_map.shape[1]
+    geometry = c * (3 * 8 + 8 * es)
+    corner = M * c * 3 * k * es
+    jac = (M * c * (4 * nq + 9) + M * n + c * nq) * es + geometry
+    cells = (M * c * 6 * nq + M * n * k + 3 * c * nq + 2 * c) * es + geometry
+    nodes = M * n * k * es + n * S * 8 + n
+    return {key: 1e3 * v / HBM_BYTES_PER_S for key, v in (
+        ("jacobian", jac), ("residual_cells", cells + corner),
+        ("node_sum", nodes + corner), ("residual_call", cells + nodes))}
+
+
+def rel_to_max(got, ref) -> float:
+    got, ref = got.double(), ref.double()
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+def phase_element(dev, M=128, steps=2):
+    """Phase 23: csrc/element_batched.cu at cooke2-ens128's shapes.  The
+    Cook_E2 mesh (setup_cooke2 on assets/cooke2_synth: 12,270 nodes, 23,990
+    cells), M members of perturbed_ensemble stepped ``steps`` hourly f32
+    steps (every launch of both libraries counted); at that state, in
+    float32 and float64, the Jacobian and the 3-column residual (seeded
+    1 % perturbations of N) against the plain twin within ELEMENT_TOLS of
+    the largest entry, each column bitwise a 1-column launch, the node sum
+    bitwise the twin's on the kernel's corners, two launches bitwise
+    equal; in float32 the device time per launch beside its bytes bound,
+    the twin's, and the forward-AD route's (vmap of physics/residual's
+    element_jacobian and assemble_residual(_multi), the route the batched
+    Newton solve took before, the one PyTorch yardstick)."""
+    import dataclasses
+
+    from shakti_tpu_torch.ops import element_cuda as ec
+    from shakti_tpu_torch.ops import spmv_cuda
+    from shakti_tpu_torch.parallel import ensemble as ens_mod
+    from shakti_tpu_torch.physics import residual as pres
+    from shakti_tpu_torch.solve import timestep as ts
+    t_phase = time.perf_counter()
+    md = cooke2_setup({"SHAKTI_MESH_DIR": COOKE2_DIR}, days=1,
+                      results_name=None)
+    md.device, md.dtype = dev, torch.float32
+    mesh, static, state, cfg = md.freeze()
+    cfg = dataclasses.replace(cfg, adaptive_dt_levels=0)
+    dts = ts.timestep_sizes(md.timesteps, md.dtype, dev)
+    step = ens_mod.make_ensemble_step_fn(mesh, static, md.params, cfg)
+    ens = ens_mod.perturbed_ensemble(state, M, b_scale=5e-4, seed=0)
+    ec.reset_launches()
+    spmv_cuda.reset_launches()
+    t0 = time.perf_counter()
+    for s in range(steps):
+        ens, d = step(ens, dts[s])
+    wall = sync_s(dev, t0)
+    res = {"M": M, "n": mesh.n_nodes, "c": mesh.n_cells, "steps": steps,
+           "wall_s_steps": wall, "launches": dict(ec.launches),
+           "spmv_launches": dict(spmv_cuda.launches),
+           "newton": d["newton_iters"].tolist()[:4],
+           "converged": bool(d["converged"].all())}
+    log(f"  {steps} steps of M={M} on Cook_E2 (f32): launches "
+        f"{res['launches']}, spmv {res['spmv_launches']}, "
+        f"{wall:.2f} s, converged {res['converged']}")
+    if not res["converged"] or min(res["launches"].values()) < steps:
+        raise RuntimeError(f"phase 23: the ensemble steps: {res}")
+    rng = np.random.default_rng(23)
+    noise = rng.standard_normal((M, mesh.n_nodes, 2))
+    for dtype, tol in ELEMENT_TOLS.items():
+        md.dtype = dtype
+        mesh_t, static_t = md.freeze()[:2]
+        st = {k: getattr(ens, k).to(dtype) for k in ("N", "b", "q", "melt")}
+        dt = dts[0].to(dtype)
+        sq = pres.static_quad_fields(mesh_t, static_t, cfg.quad_degree, dtype)
+        pre = pres.StepPre(*torch.func.vmap(
+            lambda N_, b_, q_, m_: pres.pre_values(pres.precompute_step(
+                mesh_t, N_, b_, q_, m_, static_t, dt, md.params,
+                cfg.quad_degree, sq=sq)))(st["N"], st["b"], st["q"],
+                                          st["melt"]))
+        batch = ec.prepare(pre, mesh_t, md.params)
+        N = st["N"].contiguous()
+        pert = torch.as_tensor(noise, dtype=dtype, device=dev)
+        X = torch.stack([N, N * (1 + 1e-2 * pert[..., 0]),
+                         N * (1 + 1e-2 * pert[..., 1])], dim=-1).contiguous()
+        mask = static_t.dirichlet
+        tag = str(dtype).removeprefix("torch.")
+        J = ec.jacobian(batch, N)
+        J_plain = ec.jacobian_plain(batch, N)
+        corner = ec.corner_residual(batch, X)
+        F = ec.node_sum(batch, corner, mask)
+        corner_plain = ec.corner_residual_plain(batch, X)
+        F_plain = ec.node_sum_plain(batch, corner_plain, mask)
+        torch.cuda.synchronize()
+        scale = J_plain.abs().amax(dim=(2, 3), keepdim=True)
+        r = {"jacobian_err": rel_to_max(J, J_plain),
+             "jacobian_block_err": float(((J - J_plain).abs()
+                                          / scale.clamp_min(1e-300))
+                                         .max()),
+             "corner_err": rel_to_max(corner, corner_plain),
+             "residual_err": rel_to_max(F, F_plain),
+             "max_abs_J": float(J_plain.abs().max()),
+             "max_abs_F": float(F_plain.abs().max())}
+        cols = [bitwise_equal(
+            ec.corner_residual(batch, X[..., j:j + 1].contiguous())[..., 0],
+            corner[..., j]) and bitwise_equal(
+            ec.residual(batch, X[..., j].contiguous(), mask), F[..., j])
+            for j in range(3)]
+        r["columns_bitwise"] = all(cols)
+        r["node_sum_bitwise"] = bitwise_equal(
+            F, ec.node_sum_plain(batch, corner, mask))
+        r["repeatable"] = (bitwise_equal(ec.jacobian(batch, N), J)
+                           and bitwise_equal(ec.residual(batch, X, mask), F))
+        log(f"  {tag}: " + json.dumps(r))
+        bad = [k for k in ("jacobian_err", "corner_err", "residual_err")
+               if not r[k] <= tol]
+        bad += [k for k in ("columns_bitwise", "node_sum_bitwise",
+                            "repeatable") if not r[k]]
+        if bad:
+            raise RuntimeError(f"phase 23 {tag}: {bad}: {r}")
+        if dtype == torch.float32:
+            X1 = X[..., :1].contiguous()
+            c1 = ec.corner_residual(batch, X1)
+            r["bound_ms"] = element_bounds(mesh_t, M, batch.nq, dtype, 1)
+            r["bound_ms_k3"] = element_bounds(mesh_t, M, batch.nq, dtype, 3)
+            r["device_ms"] = {
+                "jacobian": device_ms(lambda: ec.jacobian(batch, N),
+                                      "jacobian_kernel"),
+                "residual_cells": device_ms(
+                    lambda: ec.corner_residual(batch, X1), "residual_kernel"),
+                "residual_cells_k3": device_ms(
+                    lambda: ec.corner_residual(batch, X), "residual_kernel"),
+                "node_sum": device_ms(lambda: ec.node_sum(batch, c1, mask),
+                                      "node_sum_kernel"),
+                "node_sum_k3": device_ms(
+                    lambda: ec.node_sum(batch, corner, mask),
+                    "node_sum_kernel")}
+            r["ms"] = {"jacobian": median_ms(lambda: ec.jacobian(batch, N)),
+                       "residual": median_ms(
+                           lambda: ec.residual(batch, N, mask)),
+                       "residual_k3": median_ms(
+                           lambda: ec.residual(batch, X, mask))}
+            r["plain_device_ms"] = {
+                "jacobian": device_ms(lambda: ec.jacobian_plain(batch, N),
+                                      reps=10, warmup=2),
+                "residual": device_ms(lambda: ec.node_sum_plain(
+                    batch, ec.corner_residual_plain(batch, X1), mask),
+                    reps=10, warmup=2)}
+            vals = pres.pre_values(pre)
+            v_jac = torch.func.vmap(lambda N_, *p: pres.element_jacobian(
+                N_, pres.StepPre(*p), mesh_t, md.params))
+            v_res = torch.func.vmap(lambda N_, *p: pres.assemble_residual(
+                N_, pres.StepPre(*p), mesh_t, md.params))
+            v_multi = torch.func.vmap(
+                lambda N_, *p: pres.assemble_residual_multi(
+                    N_, pres.StepPre(*p), mesh_t, md.params))
+            r["ad_err"] = {"jacobian": rel_to_max(J, v_jac(N, *vals)),
+                           "residual_k3": rel_to_max(
+                               F, torch.where(mask[:, None], 0.0,
+                                              v_multi(X, *vals)))}
+            r["library_ms"] = {
+                "jacobian": median_ms(lambda: v_jac(N, *vals), reps=10),
+                "residual": median_ms(lambda: v_res(N, *vals), reps=10),
+                "residual_k3": median_ms(lambda: v_multi(X, *vals), reps=10)}
+            r["library_device_ms"] = {
+                "jacobian": device_ms(lambda: v_jac(N, *vals), reps=10,
+                                      warmup=2),
+                "residual": device_ms(lambda: v_res(N, *vals), reps=10,
+                                      warmup=2)}
+            dm, b1 = r["device_ms"], r["bound_ms"]
+            r["roofline_pct"] = {
+                "jacobian": 100 * b1["jacobian"] / dm["jacobian"],
+                "residual_cells": 100 * b1["residual_cells"]
+                / dm["residual_cells"],
+                "node_sum": 100 * b1["node_sum"] / dm["node_sum"],
+                "residual_call": 100 * b1["residual_call"]
+                / (dm["residual_cells"] + dm["node_sum"])}
+            log(f"  {tag} times: " + json.dumps({k: r[k] for k in (
+                "device_ms", "bound_ms", "roofline_pct", "ms",
+                "plain_device_ms", "library_ms", "library_device_ms",
+                "ad_err")}))
+        res[tag] = r
+        del pre, batch, J, J_plain, corner, corner_plain, F, F_plain, X
+        torch.cuda.empty_cache()
+    res["wall_s"] = time.perf_counter() - t_phase
+    log(f"  phase 23: {res['wall_s']:.1f} s")
+    return res
+
+
 # ---- phase 18: Cook_E2 from the potential field to the validation battery
 # scripts/make_cooke2_mesh.py's target: the reference mesh's node count at
 # 2 km (BASELINE.md)
@@ -3506,7 +3717,8 @@ BATCHED_LINE_KEYS = ("M", "max_abs_err", "ms", "device_ms", "singles_ms",
 
 PHASES = ("kernel", "goldens", "main", "ell", "scale", "formats", "resume",
           "bootstrap", "bicgstab", "mg", "steady", "polish", "dist", "adjoint",
-          "ensemble", "cooke2", "dist_adjoint", "validate", "drivers")
+          "ensemble", "cooke2", "dist_adjoint", "validate", "drivers",
+          "element")
 
 
 def main(argv=None):
@@ -3540,12 +3752,12 @@ def main(argv=None):
     log(f"nvidia-smi: {smi}")
 
     # ---- 2. build: one nvcc per source, started together ----
+    from shakti_tpu_torch.ops import element_cuda  # noqa: F401 (registers)
     from shakti_tpu_torch.ops import spmv_cuda
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(spmv_cuda.KERNELS)) as ex:
-        infos = dict(zip(spmv_cuda.KERNELS,
-                         ex.map(spmv_cuda.build, spmv_cuda.KERNELS)))
-    log(f"[build] {time.perf_counter() - t0:.2f} s for {len(infos)} kernels")
+    infos = spmv_cuda.build_all(*spmv_cuda.LIBRARIES)
+    log(f"[build] {time.perf_counter() - t0:.2f} s for {len(infos)} "
+        "libraries")
     for name, info in infos.items():
         log(f"  {name}: nvcc {info['seconds']:.2f} s -> {info['path']}")
         for line in info["log"].splitlines():
@@ -3557,7 +3769,7 @@ def main(argv=None):
 
     kres = mres = sres = eres = gres = stres = pres = slab = None
     ares = enres = cres = dres = fres = xres = vres = ref = main_dir = None
-    wres = None
+    wres = elres = None
     # ---- 3. bell_spmv vs plain at the bench shapes ----
     from shakti_tpu_torch.setups import setup_bench
     if "kernel" in phases:
@@ -3684,6 +3896,10 @@ def main(argv=None):
     if "ensemble" in phases:
         stamp("ensemble: bench model, float32, M = 8, 24 steps")
         enres = phase_ensemble(dev)
+    # ---- 23. the ensemble's element kernels ----
+    if "element" in phases:
+        stamp("element: Cook_E2, M = 128, the element kernels vs their twin")
+        elres = phase_element(dev)
     # ---- 18. Cook_E2 from the potential field to the battery ----
     # ---- 21. the validation drivers, on phase 18's run ----
     if "cooke2" in phases:
@@ -3765,7 +3981,19 @@ def main(argv=None):
         "float64": {k: large["float64"][k] for k in ELL_LINE_KEYS},
         "bench": {tag: {dt: {k: r[k] for k in ELL_LINE_KEYS}
                         for dt, r in v.items()}
-                  for tag, v in eres.items() if tag.startswith("bench")}}]}),
+                  for tag, v in eres.items() if tag.startswith("bench")}}, {
+        "name": "element_batched", "route": "cuda",
+        "source": "shakti_tpu_torch/csrc/element_batched.cu",
+        "replaces": "none (not a TPU kernel): jax.vmap of "
+                    "shakti_tpu/physics/residual.py's element_jacobian "
+                    "(forward AD) and assemble_residual(_multi) in XLA",
+        "launches": elres["launches"], "M": elres["M"],
+        **{k: elres["float32"][k] for k in (
+            "jacobian_err", "residual_err", "device_ms", "bound_ms",
+            "roofline_pct", "ms", "plain_device_ms", "library_ms",
+            "library_device_ms")},
+        "float64": {k: elres["float64"][k]
+                    for k in ("jacobian_err", "residual_err")}}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -43,6 +43,7 @@ The libraries have a plain C interface and load with ctypes.  A missing
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
@@ -75,6 +76,12 @@ KERNELS = {
 BATCHED = {"bell_spmv_batched": ("bell_spmv", [_p, ctypes.c_int64, _i, _p, _p,
                                                _i, _i, _i, _i, _p, _p, _p, _p,
                                                _i, _p])}
+# every library's entry points and their C signatures, by library (source
+# csrc/<library>.cu); a module with kernels of its own registers its
+# library here (ops/element_cuda.py)
+LIBRARIES = {lib: {lib: sig, **{e: s for e, (src, s) in BATCHED.items()
+                                if src == lib}}
+             for lib, sig in KERNELS.items()}
 
 
 def _build_dir() -> Path:
@@ -102,16 +109,17 @@ def _nvcc() -> str:
         if c and os.path.exists(c):
             return c
     raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/"
-                       "bin): the SpMV kernels are built from "
+                       "bin): the kernels are built from "
                        f"{_CSRC} at first use and have no fallback on CUDA")
 
 
 @functools.cache
 def build(name: str = "bell_spmv") -> dict:
-    """Compile (if needed) and load the library of kernel ``name`` (a key of
-    :data:`KERNELS`, source csrc/<name>.cu).  Returns dict(lib, path,
+    """Compile (if needed) and load library ``name`` (a key of
+    :data:`LIBRARIES`, source csrc/<name>.cu).  Returns dict(lib, path,
     seconds, log); ``seconds`` is 0.0 when a library for this source hash
-    was already built.  Different kernels may build in parallel threads."""
+    was already built.  Different libraries may build in parallel threads
+    (:func:`build_all`)."""
     src_path = _CSRC / f"{name}.cu"
     src = src_path.read_bytes()
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
@@ -133,14 +141,19 @@ def build(name: str = "bell_spmv") -> dict:
         log_path.write_text(log)
         os.replace(tmp, path)
     lib = ctypes.CDLL(str(path))
-    entries = {name: KERNELS[name]}
-    entries.update({e: sig for e, (src, sig) in BATCHED.items() if src == name})
-    for entry, sig in entries.items():
+    for entry, sig in LIBRARIES[name].items():
         for fn in (getattr(lib, f"{entry}_f32"), getattr(lib, f"{entry}_f64")):
             fn.argtypes = sig
             fn.restype = _i
     log = log_path.read_text() if log_path.exists() else ""
     return {"lib": lib, "path": str(path), "seconds": seconds, "log": log}
+
+
+def build_all(*names: str) -> dict:
+    """:func:`build` of each library of ``names``, one nvcc each, started
+    together; name -> build's dict."""
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as ex:
+        return dict(zip(names, ex.map(build, names)))
 
 
 # kernel launches since the last reset, per kernel and entry point: each

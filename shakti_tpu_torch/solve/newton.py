@@ -22,6 +22,7 @@ import math
 
 import torch
 
+from shakti_tpu_torch.ops import element_cuda
 from shakti_tpu_torch.physics import residual as res
 from shakti_tpu_torch.solve import krylov
 from shakti_tpu_torch.solve import precond as pc
@@ -323,9 +324,13 @@ def newton_solve_batched(N_init, pre, mesh, dirichlet, dirichlet_value,
     leading member axis (physics/residual.PRE_FIELDS).  Each member follows
     its own single solve (its floor probe, tolerances, line search, stall
     count and best iterate); one that has stopped keeps its iterate while
-    the others go on.  The residual, element Jacobian, fold and diagonal are
-    ``torch.func.vmap`` of the single-member functions; the matvec is the
-    batched operator (residual.batched_operator), the preconditioner
+    the others go on.  The residual and the element Jacobian are the
+    closed forms of ops/element_cuda, batched over the members (on the card
+    one kernel launch for the Jacobian, two for each residual call; the
+    single solve keeps forward AD, which its adjoint differentiates); the
+    fold and diagonal are ``torch.func.vmap`` of the single-member
+    functions; the matvec is the batched operator
+    (residual.batched_operator), the preconditioner
     precond.make_preconditioner_batched, the Krylov solve the batched one.
 
     Returns (N (M, n), stats) with stats = dict(iters, rnorm0, rnorm,
@@ -337,23 +342,14 @@ def newton_solve_batched(N_init, pre, mesh, dirichlet, dirichlet_value,
     if cfg.coarse_block is None:
         cfg = dataclasses.replace(cfg, coarse_block=64)
     lin_solve = krylov.get_solver(cfg.krylov, batched=True)
-    vals_pre = res.pre_values(pre)
-
-    def per_member(fn):
-        return torch.func.vmap(lambda N, *p: fn(N, res.StepPre(*p)))
-
-    v_resid = per_member(lambda N, p: res.assemble_residual(N, p, mesh,
-                                                            params))
-    v_multi = per_member(lambda N, p: res.assemble_residual_multi(N, p, mesh,
-                                                                  params))
-    v_jac = per_member(lambda N, p: res.element_jacobian(N, p, mesh, params))
+    elements = element_cuda.prepare(pre, mesh, params)
 
     def norm(x):
         return krylov.norm(x, dim=-1).double()
 
     def resid(N):
         with span("newton.residual"):
-            return torch.where(dirichlet, 0.0, v_resid(N, *vals_pre))
+            return element_cuda.residual(elements, N, dirichlet)
 
     N0 = torch.where(dirichlet, dirichlet_value, N_init)
     Nr = N0 if N_ref is None else torch.where(dirichlet, dirichlet_value, N_ref)
@@ -361,9 +357,9 @@ def newton_solve_batched(N_init, pre, mesh, dirichlet, dirichlet_value,
     tiny, eps = fi.tiny, fi.eps
     sign = 1.0 - 2.0 * (torch.arange(N0.shape[-1], device=N0.device) % 2).to(N0.dtype)
     with span("newton.residual"):
-        cols = v_multi(torch.stack([Nr, N0, Nr + eps * torch.abs(Nr) * sign],
-                                   dim=-1), *vals_pre)
-        cols = torch.where(dirichlet[:, None], 0.0, cols)
+        cols = element_cuda.residual(
+            elements, torch.stack([Nr, N0, Nr + eps * torch.abs(Nr) * sign],
+                                  dim=-1), dirichlet)
     r_ref, r0 = cols[..., 0], cols[..., 1]
     floor_b = norm(cols[..., 2] - r_ref)
     rnorm_ref, rnorm0 = norm(r_ref), norm(r0)
@@ -388,7 +384,7 @@ def newton_solve_batched(N_init, pre, mesh, dirichlet, dirichlet_value,
     running = running_fn()
     while bool(running.any()):
         with span("newton.jacobian"):
-            J_c = v_jac(N, *vals_pre)
+            J_c = element_cuda.jacobian(elements, N)
         vals = None
         with span("newton.fold"):
             if res.has_values(mesh):

@@ -31,7 +31,8 @@ The spans (:data:`SPANS`), the same on the single and the batched path:
 
 The counters (:data:`counts`): ``krylov.trips``, one per pass of a Krylov
 loop's body (a batched solve's passes, whatever number of members are
-live).  :func:`snapshot` also reads ops/spmv_cuda's kernel launches.
+live).  :func:`snapshot` also reads the kernel launches of ops/spmv_cuda
+and ops/element_cuda.
 """
 
 from __future__ import annotations
@@ -59,16 +60,18 @@ def span(name: str):
 
 
 def reset():
-    """Zero this module's counters (ops/spmv_cuda's are left as they are)."""
+    """Zero this module's counters (the kernels' launch counts are left as
+    they are)."""
     for k in counts:
         counts[k] = 0
 
 
 def snapshot() -> dict:
-    """Every counter of the port: this module's, and ops/spmv_cuda's kernel
-    launches as ``spmv_cuda.launches.<entry point>``."""
-    from shakti_tpu_torch.ops import spmv_cuda
+    """Every counter of the port: this module's, and the kernel launches of
+    ops/spmv_cuda and ops/element_cuda as ``<module>.launches.<entry
+    point>``."""
+    from shakti_tpu_torch.ops import element_cuda, spmv_cuda
     out = dict(counts)
-    out.update({f"spmv_cuda.launches.{k}": v
-                for k, v in spmv_cuda.launches.items()})
+    for name, mod in (("spmv_cuda", spmv_cuda), ("element_cuda", element_cuda)):
+        out.update({f"{name}.launches.{k}": v for k, v in mod.launches.items()})
     return out
