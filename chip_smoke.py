@@ -245,6 +245,17 @@ Phases (any failure raises: exit code != 0 and no result line):
      launch's device time beside its bytes bound, the twin's time and the
      forward-AD route's (vmap of physics/residual's functions, the route
      the batched Newton solve took before).
+ 24. coarse: the ensemble's coarse operators (coarse_batched of
+     csrc/element_batched.cu, ops/element_cuda.coarse) at cooke2-ens128's
+     shapes: 128 members stepped twice in float32 under the two-level
+     preconditioner, one launch per Newton iteration of the ensemble; at
+     that state, at the run's aggregate size and at 64 nodes, in float32
+     and float64 the coarse operators from the element Jacobian bitwise
+     the plain twin's and two launches bitwise equal; in float32 the
+     launch's device time beside its bytes bound, the twin's, the batched
+     preconditioner build's and that of the vmapped coarse_from_values
+     route it replaces (the inverses of both compared); with phase 17 run,
+     its members' f32 reading repeated beside them.
 The line before the last is a JSON object with the kernels' numbers; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -2042,6 +2053,25 @@ def rel_to_max(got, ref) -> float:
     return float((got - ref).abs().max() / ref.abs().max())
 
 
+def ensemble_batch(md, cfg, ens, dt, dtype):
+    """The ensemble ``ens`` at one step of ``md`` in ``dtype``: (mesh,
+    static, the members' StepPre as the ensemble's vmapped precompute makes
+    it, its checked ops/element_cuda batch, N (M, n) contiguous)."""
+    from shakti_tpu_torch.ops import element_cuda as ec
+    from shakti_tpu_torch.physics import residual as pres
+    md.dtype = dtype
+    mesh_t, static_t = md.freeze()[:2]
+    st = {k: getattr(ens, k).to(dtype) for k in ("N", "b", "q", "melt")}
+    dt = dt.to(dtype)
+    sq = pres.static_quad_fields(mesh_t, static_t, cfg.quad_degree, dtype)
+    pre = pres.StepPre(*torch.func.vmap(
+        lambda N_, b_, q_, m_: pres.pre_values(pres.precompute_step(
+            mesh_t, N_, b_, q_, m_, static_t, dt, md.params,
+            cfg.quad_degree, sq=sq)))(st["N"], st["b"], st["q"], st["melt"]))
+    return (mesh_t, static_t, pre, ec.prepare(pre, mesh_t, md.params),
+            st["N"].contiguous())
+
+
 def phase_element(dev, M=128, steps=2):
     """Phase 23: csrc/element_batched.cu at cooke2-ens128's shapes.  The
     Cook_E2 mesh (setup_cooke2 on assets/cooke2_synth: 12,270 nodes, 23,990
@@ -2090,18 +2120,8 @@ def phase_element(dev, M=128, steps=2):
     rng = np.random.default_rng(23)
     noise = rng.standard_normal((M, mesh.n_nodes, 2))
     for dtype, tol in ELEMENT_TOLS.items():
-        md.dtype = dtype
-        mesh_t, static_t = md.freeze()[:2]
-        st = {k: getattr(ens, k).to(dtype) for k in ("N", "b", "q", "melt")}
-        dt = dts[0].to(dtype)
-        sq = pres.static_quad_fields(mesh_t, static_t, cfg.quad_degree, dtype)
-        pre = pres.StepPre(*torch.func.vmap(
-            lambda N_, b_, q_, m_: pres.pre_values(pres.precompute_step(
-                mesh_t, N_, b_, q_, m_, static_t, dt, md.params,
-                cfg.quad_degree, sq=sq)))(st["N"], st["b"], st["q"],
-                                          st["melt"]))
-        batch = ec.prepare(pre, mesh_t, md.params)
-        N = st["N"].contiguous()
+        mesh_t, static_t, pre, batch, N = ensemble_batch(md, cfg, ens,
+                                                         dts[0], dtype)
         pert = torch.as_tensor(noise, dtype=dtype, device=dev)
         X = torch.stack([N, N * (1 + 1e-2 * pert[..., 0]),
                          N * (1 + 1e-2 * pert[..., 1])], dim=-1).contiguous()
@@ -2206,6 +2226,131 @@ def phase_element(dev, M=128, steps=2):
         torch.cuda.empty_cache()
     res["wall_s"] = time.perf_counter() - t_phase
     log(f"  phase 23: {res['wall_s']:.1f} s")
+    return res
+
+
+# ---- phase 24: the ensemble's coarse operators (coarse_batched) ---------
+
+def coarse_bound(mesh, M, dtype, plan):
+    """The bytes bound (ms at 3.35 TB/s) of one coarse_batched launch: each
+    member's 9c entries of J read once and its (m, m) operator written; the
+    plan (positions, offsets, slots, the filled mask), the cells and the
+    Dirichlet mask read once."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    U, mm = plan.slots.shape[0], plan.m * plan.m
+    need = (M * (9 * mesh.n_cells + mm) * es + 9 * mesh.n_cells * 4
+            + (U + 1) * 4 + U * 8 + mm + 3 * 8 * mesh.n_cells + mesh.n_nodes)
+    return 1e3 * need / HBM_BYTES_PER_S
+
+
+def phase_coarse(dev, M=128, steps=2):
+    """Phase 24: csrc/element_batched.cu's coarse_batched at cooke2-ens128's
+    shapes.  The Cook_E2 mesh, M members of perturbed_ensemble stepped
+    ``steps`` hourly f32 steps under the two-level preconditioner, one
+    launch per Newton iteration of the ensemble; at that state, in float32
+    and float64, the element Jacobian's coarse operators at the run's
+    aggregate size (and at 64 nodes) bitwise the plain twin's, two launches
+    bitwise equal; in float32 the launch's device time beside its bytes
+    bound, the twin's, the batched preconditioner build's (kernel, inverse)
+    and that of the route it replaces, the vmapped coarse_from_values over
+    the folded block-ELL values, with both routes' inverses compared."""
+    import dataclasses
+
+    from shakti_tpu_torch.ops import element_cuda as ec
+    from shakti_tpu_torch.parallel import ensemble as ens_mod
+    from shakti_tpu_torch.physics import residual as pres
+    from shakti_tpu_torch.solve import precond as pc
+    from shakti_tpu_torch.solve import timestep as ts
+    t_phase = time.perf_counter()
+    md = cooke2_setup({"SHAKTI_MESH_DIR": COOKE2_DIR}, days=1,
+                      results_name=None)
+    md.device, md.dtype = dev, torch.float32
+    md.solver = dataclasses.replace(md.solver, adaptive_dt_levels=0,
+                                    precond="two_level")
+    mesh, static, state, cfg = md.freeze()
+    dts = ts.timestep_sizes(md.timesteps, md.dtype, dev)
+    step = ens_mod.make_ensemble_step_fn(mesh, static, md.params, cfg)
+    ens = ens_mod.perturbed_ensemble(state, M, b_scale=5e-4, seed=0)
+    ec.reset_launches()
+    newton = 0
+    for s in range(steps):
+        ens, d = step(ens, dts[s])
+        newton += int(np.max(d["newton_iters"]))
+    blocks = (cfg.coarse_block, 64)
+    res = {"M": M, "n": mesh.n_nodes, "c": mesh.n_cells, "steps": steps,
+           "blocks": blocks, "newton_iterations": newton,
+           "launches": ec.launches["coarse_batched"],
+           "converged": bool(np.all(d["converged"]))}
+    log(f"  {steps} steps of M={M} on Cook_E2 (f32, two-level, block "
+        f"{cfg.coarse_block}): {res['launches']} coarse_batched launches for "
+        f"{newton} Newton iterations, converged {res['converged']}")
+    if not res["converged"] or res["launches"] != newton:
+        raise RuntimeError(f"phase 24: the ensemble steps: {res}")
+    for dtype in (torch.float32, torch.float64):
+        mesh_t, static_t, pre, batch, N = ensemble_batch(md, cfg, ens,
+                                                         dts[0], dtype)
+        J = ec.jacobian(batch, N)
+        fixed = static_t.dirichlet
+        tag = str(dtype).removeprefix("torch.")
+        r = {}
+        for block in blocks:
+            plan = ec.coarse_plan(mesh_t, block)
+            A = ec.coarse(mesh_t, J, fixed, block)
+            torch.cuda.synchronize()
+            counts = plan.offsets.diff()
+            r[block] = {"m": plan.m, "pairs": plan.slots.shape[0],
+                        "longest": plan.maxlen,
+                        "mean_pair": float(counts.double().mean()),
+                        "bitwise": bitwise_equal(
+                            A, ec.coarse_plain(mesh_t, J, fixed, block)),
+                        "repeatable": bitwise_equal(
+                            A, ec.coarse(mesh_t, J, fixed, block))}
+        log(f"  {tag}: " + json.dumps(r))
+        bad = [(b, k) for b, v in r.items() for k in ("bitwise", "repeatable")
+               if not v[k]]
+        if bad:
+            raise RuntimeError(f"phase 24 {tag}: {bad}: {r}")
+        if dtype == torch.float32:
+            a_diag = torch.ones_like(N)
+            vals = torch.func.vmap(
+                lambda J_: pres.fold_operator_values(J_, mesh_t))(J)
+            for block in blocks:
+                rb = r[block]
+                plan = ec.coarse_plan(mesh_t, block)
+
+                def kernel():
+                    return ec.coarse(mesh_t, J, fixed, block)
+
+                def build():
+                    return pc.make_preconditioner_batched(
+                        "two_level", mesh_t, fixed, a_diag, block, J_c=J)
+
+                def replaced():
+                    return torch.func.vmap(lambda v: pc.coarse_from_values(
+                        v, mesh_t, fixed, block))(vals)
+
+                rb["bound_ms"] = coarse_bound(mesh_t, M, dtype, plan)
+                rb["device_ms"] = device_ms(kernel, "coarse_kernel")
+                rb["ms"] = median_ms(kernel)
+                rb["roofline_pct"] = 100 * rb["bound_ms"] / rb["device_ms"]
+                rb["plain_device_ms"] = device_ms(
+                    lambda: ec.coarse_plain(mesh_t, J, fixed, block),
+                    reps=10, warmup=2)
+                rb["build_ms"] = median_ms(build, reps=20)
+                rb["build_device_ms"] = device_ms(build, reps=20)
+                rb["library_ms"] = median_ms(replaced, reps=10, warmup=2)
+                rb["library_device_ms"] = device_ms(replaced, reps=10,
+                                                    warmup=2)
+                new_inv = torch.func.vmap(lambda A_: pc.regularized_inverse(
+                    A_, plan.m, dtype, torch.finfo(dtype).tiny))(kernel())
+                rb["inverse_err"] = rel_to_max(new_inv, replaced())
+                log(f"  {tag} block {block} times: " + json.dumps(rb))
+            del vals
+        res[tag] = r
+        del pre, batch, J
+        torch.cuda.empty_cache()
+    res["wall_s"] = time.perf_counter() - t_phase
+    log(f"  phase 24: {res['wall_s']:.1f} s")
     return res
 
 
@@ -3718,7 +3863,7 @@ BATCHED_LINE_KEYS = ("M", "max_abs_err", "ms", "device_ms", "singles_ms",
 PHASES = ("kernel", "goldens", "main", "ell", "scale", "formats", "resume",
           "bootstrap", "bicgstab", "mg", "steady", "polish", "dist", "adjoint",
           "ensemble", "cooke2", "dist_adjoint", "validate", "drivers",
-          "element")
+          "element", "coarse")
 
 
 def main(argv=None):
@@ -3769,7 +3914,7 @@ def main(argv=None):
 
     kres = mres = sres = eres = gres = stres = pres = slab = None
     ares = enres = cres = dres = fres = xres = vres = ref = main_dir = None
-    wres = elres = None
+    wres = elres = cores = None
     # ---- 3. bell_spmv vs plain at the bench shapes ----
     from shakti_tpu_torch.setups import setup_bench
     if "kernel" in phases:
@@ -3900,6 +4045,17 @@ def main(argv=None):
     if "element" in phases:
         stamp("element: Cook_E2, M = 128, the element kernels vs their twin")
         elres = phase_element(dev)
+    # ---- 24. the ensemble's coarse operators ----
+    if "coarse" in phases:
+        stamp("coarse: Cook_E2, M = 128, coarse_batched vs its twin and the "
+              "route it replaces")
+        cores = phase_coarse(dev)
+        if enres is not None:
+            cores["ensemble_members_err_N"] = {
+                m: r["err_N"] for m, r in enres["members"].items()}
+            log("  phase 17, members alone against the f32 ensemble "
+                f"(limit {ENSEMBLE_F32_RTOL:g}): "
+                + json.dumps(cores["ensemble_members_err_N"]))
     # ---- 18. Cook_E2 from the potential field to the battery ----
     # ---- 21. the validation drivers, on phase 18's run ----
     if "cooke2" in phases:
@@ -3993,7 +4149,16 @@ def main(argv=None):
             "roofline_pct", "ms", "plain_device_ms", "library_ms",
             "library_device_ms")},
         "float64": {k: elres["float64"][k]
-                    for k in ("jacobian_err", "residual_err")}}]}),
+                    for k in ("jacobian_err", "residual_err")}}, {
+        "name": "coarse_batched", "route": "cuda",
+        "source": "shakti_tpu_torch/csrc/element_batched.cu",
+        "replaces": "none (not a TPU kernel): jax.vmap of "
+                    "shakti_tpu/solve/precond.py's coarse_from_values in XLA",
+        "launches": cores["launches"], "M": cores["M"],
+        "newton_iterations": cores["newton_iterations"],
+        "ensemble_members_err_N": cores["ensemble_members_err_N"],
+        **{str(b): cores["float32"][b] for b in cores["blocks"]},
+        "float64": {str(b): cores["float64"][b] for b in cores["blocks"]}}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

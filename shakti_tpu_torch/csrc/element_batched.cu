@@ -1,8 +1,11 @@
-// The ensemble's element residual and element Jacobian in closed form, for
-// NVIDIA Hopper (sm_90a), batched over the members of an ensemble.
+// The ensemble's element residual and element Jacobian in closed form, and
+// the two-level preconditioner's coarse operators built from that
+// Jacobian, for NVIDIA Hopper (sm_90a), batched over the members of an
+// ensemble.
 //
-// Replaces no TPU kernel.  The JAX package computes both in XLA as jax.vmap
-// of shakti_tpu/physics/residual.py:corner_residual_multi and of its
+// Replaces no TPU kernel.  The JAX package computes all of it in XLA: the
+// residual and Jacobian as jax.vmap of
+// shakti_tpu/physics/residual.py:corner_residual_multi and of its
 // forward-AD element_jacobian; the port's batched Newton solve
 // (solve/newton.py:newton_solve_batched) did the same with torch.func.vmap
 // and torch.func.jvp, which writes (M, c, nq, 3, 2, k) intermediates for the
@@ -62,6 +65,46 @@
 // without contraction, so the two agree to rounding (chip_smoke.py's
 // phase `element` holds them to 1e-12 in f64 and 1e-5 in f32 of the
 // largest entry).  The node sum has no products: it is bitwise the twin's.
+//
+//   coarse_batched  the Galerkin coarse operators A_c (M, m, m) of the
+//   two-level preconditioner, m = ceil(n / block), from the element
+//   Jacobian J (M, c, 3, 3):
+//     A_c[mb, slot] = sum_k -J[mb, pos_k] * (free[row(pos_k)] free[col(pos_k)])
+//   over the positions (flat indices into the 9c entries) of the aggregate
+//   pair `slot` in the host plan's order, summed left to right in one
+//   thread; every slot of no pair is 0.  The plan (ops/element_cuda.
+//   coarse_plan) lists each pair's positions in the order of
+//   fem/ops.py:gather_plan over the keys agg_row * m + agg_col, the plan of
+//   solve/precond.py:coarse_inverse; a pair shorter than the longest gets
+//   one more + 0, as the padded plan's sum adds its padding zeros.  Products
+//   and sums are __fmul_rn / __fadd_rn (never contracted), so A_c is
+//   bitwise the twin's (coarse_inverse's sum before its inverse, for all
+//   members at once).  In the ensemble it takes the place of the vmapped
+//   solve/precond.py:coarse_from_values (jax.vmap of the JAX package's,
+//   in XLA): masked products over the dense block-ELL values, 0.49 % of
+//   whose slots are structural on Cook_E2.
+//   Bound: memory.  At the benchmark's shape (c = 23,990, aggregates of
+//   128 nodes: m = 96, 740 pairs; M = 128, f32) it reads the 9c entries of
+//   J once per member (110.5 MB) and writes A_c (4.7 MB); the plan
+//   (215,910 positions), cells and mask are read once: ~0.12 GB, 35 us at
+//   3.35 TB/s.  The sums are serial (up to 2,108 entries a pair), so the
+//   design keeps the loads ahead of the adds and the warps uniform:
+//   - a warp takes one pair for 2 members, 32 entries at a time: lane t
+//     loads position t and its free mask once and gathers that entry of
+//     both members (a member's 32 entries lie in a few cells, so a load
+//     instruction touches a few lines; with a lane per member it touched
+//     32), the (2, 32) tile goes through shared memory, and lanes 0 and 1
+//     add their member's row in order, 16 bytes a read, while the next
+//     chunk's gathers are in flight.  One sum a member keeps every chain
+//     as short as the pair, and two members a warp halve the index work
+//     (measured on the H100 at M = 128 on Cook_E2, aggregates of 128:
+//     a lane per member 0.28 ms, one member a warp 0.17, two 0.12, four
+//     0.13, eight 0.19);
+//   - the pairs run longest first, so the long diagonal pairs start in
+//     the first wave and the short ones fill in behind them;
+//   - the slots of no pair are zeroed by the grid's last CTAs, one slot a
+//     thread for every member (coalesced): one launch in all, no atomics,
+//     no memset.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -74,6 +117,14 @@ constexpr int kSMax = 16;       // incidence slots per node
 constexpr int kThreads = 128;   // cells (nodes) per CTA
 constexpr int kMembers = 8;     // members per CTA
 constexpr int kFields = 12;
+// coarse_batched: a chunk of a pair's entries is kLanes, one a lane; a
+// warp sums kRows members (2 measured best on the benchmark's shape, of 1
+// to 16), kWarps warps a CTA; a tile row is padded to kRow so that the
+// rows' 16-byte reads fall in distinct banks
+constexpr int kLanes = 32;
+constexpr int kRows = 2;
+constexpr int kWarps = 4;
+constexpr int kRow = kLanes + 4;
 
 // the fields of the step's frozen data, in ops/element_cuda.FIELDS order
 enum Field { kTq, kQq, kBq, kMdiff, kGq, kInq, kStq, kNnq, kGb0, kDt, kPhi,
@@ -310,6 +361,137 @@ node_sum_kernel(const T* __restrict__ corner, int64_t slots,
   }
 }
 
+// products and sums rounded one at a time, never contracted into FMAs
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+
+// the free mask of entry pos = 9 cell + 3 i + j: free[row] * free[col]
+template <typename T>
+__device__ __forceinline__ T entry_weight(int pos,
+                                          const int64_t* __restrict__ cells,
+                                          const uint8_t* __restrict__ fixed) {
+  const int cell = pos / 9;
+  const int e = pos - 9 * cell;
+  const int i = e / 3;
+  const int j = e - 3 * i;
+  const T fr = __ldg(fixed + __ldg(cells + 3 * cell + i)) ? T(0) : T(1);
+  const T fc = __ldg(fixed + __ldg(cells + 3 * cell + j)) ? T(0) : T(1);
+  return mul_rn(fr, fc);
+}
+
+// lane t's entry of the chunk at k for each of a warp's members: x[r] =
+// -J[m0 + r, pos] * w, 0 past the pair's end or the members
+template <typename T>
+__device__ __forceinline__ void load_chunk(
+    T (&x)[kRows], const T* __restrict__ J, int64_t sJ, int m0, int members,
+    const int* __restrict__ positions, int k, int k1,
+    const int64_t* __restrict__ cells, const uint8_t* __restrict__ fixed) {
+  const bool in = k + static_cast<int>(threadIdx.x) < k1;
+  int pos = 0;
+  T w = T(0);
+  if (in) {
+    pos = __ldg(positions + k + threadIdx.x);
+    w = entry_weight<T>(pos, cells, fixed);
+  }
+#pragma unroll
+  for (int r = 0; r < kRows; ++r)
+    x[r] = in && r < members
+               ? mul_rn(-__ldg(J + static_cast<int64_t>(m0 + r) * sJ + pos), w)
+               : T(0);
+}
+
+// acc + row[0] + ... + row[n - 1] left to right, the row read 16 bytes at
+// a time
+__device__ __forceinline__ float add_row(float acc, const float* row, int n) {
+  const float4* q = reinterpret_cast<const float4*>(row);
+  int t = 0;
+  for (; t + 4 <= n; t += 4) {
+    const float4 a = q[t / 4];
+    acc = add_rn(add_rn(add_rn(add_rn(acc, a.x), a.y), a.z), a.w);
+  }
+  for (; t < n; ++t) acc = add_rn(acc, row[t]);
+  return acc;
+}
+__device__ __forceinline__ double add_row(double acc, const double* row,
+                                          int n) {
+  const double2* q = reinterpret_cast<const double2*>(row);
+  int t = 0;
+  for (; t + 2 <= n; t += 2) {
+    const double2 a = q[t / 2];
+    acc = add_rn(add_rn(acc, a.x), a.y);
+  }
+  if (t < n) acc = add_rn(acc, row[t]);
+  return acc;
+}
+
+// CTAs [0, pair_ctas): the CTAs of a pair are consecutive, warp y of CTA b
+// takes kRows members of pair b / (CTAs a pair); the rest zero the slots
+// of no pair, kLanes * kWarps slots a CTA for every member.  A warp takes
+// its pair's entries kLanes at a time: lane t loads position t and its
+// free mask and gathers that entry of each of its members (a coalesced
+// load of the few cells a chunk spans), the (member, entry) tile goes
+// through shared memory, and lane r adds member r's row in order while the
+// next chunk's gathers are in flight.
+template <typename T>
+__global__ void __launch_bounds__(kLanes * kWarps)
+coarse_kernel(const T* __restrict__ J, int64_t sJ,
+              const uint8_t* __restrict__ fixed,
+              const int64_t* __restrict__ cells,
+              const int64_t* __restrict__ slots,
+              const int* __restrict__ offsets,
+              const int* __restrict__ positions, int maxlen,
+              const uint8_t* __restrict__ filled, int64_t mm, int M,
+              int64_t pair_ctas, T* __restrict__ out) {
+  __shared__ __align__(16) T tile[kWarps][kRows][kRow];
+  const int lane = threadIdx.x;
+  const int64_t b = blockIdx.x;
+  if (b < pair_ctas) {
+    const int64_t per_pair = ((M + kRows - 1) / kRows + kWarps - 1) / kWarps;
+    const int64_t u = b / per_pair;
+    const int m0 =
+        static_cast<int>((b % per_pair) * kWarps + threadIdx.y) * kRows;
+    if (m0 >= M) return;                      // the whole warp
+    const int members = min(kRows, M - m0);
+    T(*rows)[kRow] = tile[threadIdx.y];
+    const int k0 = __ldg(offsets + u), k1 = __ldg(offsets + u + 1);
+    T v[kRows], next[kRows] = {};
+    load_chunk(v, J, sJ, m0, members, positions, k0, k1, cells, fixed);
+    T acc = T(-0.0);                          // -0 + x == x for every x
+    for (int k = k0; k < k1; k += kLanes) {
+      if (k + kLanes < k1)
+        load_chunk(next, J, sJ, m0, members, positions, k + kLanes, k1,
+                   cells, fixed);
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) rows[r][lane] = v[r];
+      __syncwarp();
+      if (lane < members) acc = add_row(acc, rows[lane], min(kLanes, k1 - k));
+      __syncwarp();
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) v[r] = next[r];
+    }
+    // the padded plan adds zeros after a shorter pair's entries: -0 -> +0
+    if (k1 - k0 < maxlen) acc = add_rn(acc, T(0));
+    if (lane < members)
+      out[static_cast<int64_t>(m0 + lane) * mm + __ldg(slots + u)] = acc;
+  } else {
+    const int64_t s = (b - pair_ctas) * (kLanes * kWarps)
+                      + threadIdx.y * kLanes + lane;
+    if (s >= mm || __ldg(filled + s)) return;
+    for (int mb = 0; mb < M; ++mb)
+      out[static_cast<int64_t>(mb) * mm + s] = T(0);
+  }
+}
+
 template <typename T>
 Fields<T> fields_of(const void* const* ptrs, const int64_t* strides) {
   Fields<T> f;
@@ -396,6 +578,29 @@ int node_sum(const T* corner, int nc, const int64_t* inc, int S, int64_t n,
   return static_cast<int>(leave(device, prev));
 }
 
+template <typename T>
+int coarse(const T* J, int64_t sJ, const uint8_t* fixed, const int64_t* cells,
+           const int64_t* slots, const int* offsets, const int* positions,
+           int U, int maxlen, const uint8_t* filled, int64_t mm, int M, T* out,
+           int device, void* stream) {
+  if (M < 1 || U < 0 || U > mm || maxlen < (U > 0 ? 1 : 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t per_pair = ((M + kRows - 1) / kRows + kWarps - 1) / kWarps;
+  const int64_t pair_ctas = U * per_pair;
+  const int64_t fill_ctas = (mm + kLanes * kWarps - 1) / (kLanes * kWarps);
+  const int64_t ctas = pair_ctas + fill_ctas;
+  if (ctas > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  if (ctas == 0) return 0;
+  int prev = -1;
+  cudaError_t err = enter(device, &prev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  coarse_kernel<T><<<static_cast<unsigned>(ctas), dim3(kLanes, kWarps), 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      J, sJ, fixed, cells, slots, offsets, positions, maxlen, filled, mm, M,
+      pair_ctas, out);
+  return static_cast<int>(leave(device, prev));
+}
+
 }  // namespace
 
 // Plain C interface (loaded with ctypes).  `ptrs` and `strides` are host
@@ -407,6 +612,11 @@ int node_sum(const T* corner, int nc, const int64_t* inc, int S, int64_t n,
 // synchronise and allocates nothing.  Returns the cudaError_t of the launch
 // (cudaErrorInvalidValue for nq outside [1, 6], k outside [1, 3], S outside
 // [1, 16], or more than 65535 * 8 members); 0 on success.
+// coarse_batched: J (M, c, 3, 3) with member stride sJ (elements) and the
+// rest contiguous, the Dirichlet mask `fixed` (n,) bool, cells (c, 3)
+// int64, the plan of ops/element_cuda.coarse_plan (slots (U,) int64,
+// offsets (U + 1,) and positions int32, the longest pair's length maxlen,
+// filled (m m,) bool), out (M, m, m) contiguous, mm = m m.
 #define ELEMENT_ENTRIES(T, SUFFIX)                                            \
   extern "C" int element_jacobian_batched_##SUFFIX(                          \
       const void* const* ptrs, const int64_t* strides, const double* consts, \
@@ -429,6 +639,14 @@ int node_sum(const T* corner, int nc, const int64_t* inc, int S, int64_t n,
       int kc, const uint8_t* mask, T* out, int device, void* stream) {        \
     return node_sum<T>(corner, nc, inc, S, n, M, kc, mask, out, device,      \
                        stream);                                               \
+  }                                                                           \
+  extern "C" int coarse_batched_##SUFFIX(                                     \
+      const T* J, int64_t sJ, const uint8_t* fixed, const int64_t* cells,    \
+      const int64_t* slots, const int* offsets, const int* positions, int U, \
+      int maxlen, const uint8_t* filled, int64_t mm, int M, T* out,         \
+      int device, void* stream) {                                             \
+    return coarse<T>(J, sJ, fixed, cells, slots, offsets, positions, U,      \
+                     maxlen, filled, mm, M, out, device, stream);             \
   }
 
 ELEMENT_ENTRIES(float, f32)

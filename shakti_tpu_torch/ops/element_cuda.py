@@ -34,6 +34,13 @@ csrc/element_batched.cu (or an error: no fallback); on CPU tensors it is
 the plain twin below, which does the kernels' operations in their order
 without FMA contraction (the kernels agree with it to rounding).
 
+The two-level preconditioner's coarse operators of the ensemble come
+from the same Jacobian: :func:`coarse` sums each member's free-masked
+element entries by (row aggregate, column aggregate), as
+solve/precond.coarse_inverse does before its inverse, over a host plan
+(:func:`coarse_plan`) that lists each aggregate pair's entries in
+coarse_inverse's order; kernel and twin are bitwise equal.
+
 Each launch adds one to :data:`launches` under its entry's name.
 """
 
@@ -42,10 +49,12 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import weakref
 
+import numpy as np
 import torch
 
-from shakti_tpu_torch.fem.ops import fixed_sum
+from shakti_tpu_torch.fem.ops import fixed_sum, gather_plan
 from shakti_tpu_torch.ops import spmv_cuda as spmv
 from shakti_tpu_torch.params import PhysicalParams
 
@@ -65,6 +74,8 @@ ENTRIES = {
     "element_jacobian_batched": _HEAD + [_p, _p, _i, _p],
     "element_residual_batched": _HEAD + [_i, _p, _p, _i, _p],
     "node_sum_batched": [_p, _i, _p, _i, _i64, _i, _i, _p, _p, _i, _p],
+    "coarse_batched": [_p, _i64, _p, _p, _p, _p, _p, _i, _i, _p, _i64, _i,
+                       _p, _i, _p],
 }
 spmv.LIBRARIES["element_batched"] = ENTRIES
 
@@ -140,9 +151,7 @@ def prepare(pre, mesh, params: PhysicalParams) -> Batch:
             s for k in FIELDS
             for s in (list(fields[k].stride()) + [0, 0, 0])[:4]))
         table = (ptrs, strides, (ctypes.c_double * 5)(*consts))
-        spmv_lib = ("ell_spmv" if mesh.structural else
-                    "bell_spmv" if mesh.bell_nbr is not None else None)
-        lib = _library(spmv_lib)
+        lib = _mesh_library(mesh)
     return Batch(mesh=mesh, fields=fields, consts=consts, M=M,
                  nq=nq, dtype=dtype, device=device, table=table, lib=lib)
 
@@ -157,10 +166,20 @@ def _library(spmv_lib: str | None):
     return spmv.build_all(*names)["element_batched"]["lib"]
 
 
+def _mesh_library(mesh):
+    """:func:`_library` beside the SpMV library of ``mesh``'s format."""
+    return _library("ell_spmv" if mesh.structural else
+                    "bell_spmv" if mesh.bell_nbr is not None else None)
+
+
 def _launch(batch: Batch, entry: str, *args):
-    fn = getattr(batch.lib, f"{entry}_f32" if batch.dtype == torch.float32
+    _call(batch.lib, entry, batch.dtype, batch.device, *args)
+
+
+def _call(lib, entry: str, dtype, device, *args):
+    fn = getattr(lib, f"{entry}_f32" if dtype == torch.float32
                  else f"{entry}_f64")
-    index = batch.device.index
+    index = device.index
     err = fn(*args, index, torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: cudaError {err}")
@@ -342,4 +361,119 @@ def jacobian(batch: Batch, N):
                       device=batch.device)
     _launch(batch, "element_jacobian_batched", *_geometry_args(batch),
             N.data_ptr(), out.data_ptr())
+    return out
+
+
+# ---- the two-level coarse operators ---------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class CoarsePlan:
+    """The aggregate sum of :func:`coarse` for one mesh and aggregate size,
+    the aggregate pairs longest first: ``slots`` (U,) int64 their flat
+    indices into the (m, m) operator, ``offsets`` (U + 1,) int32 and
+    ``positions`` int32 their entries (9 cell + 3 i + j) in
+    fem/ops.gather_plan's order, ``maxlen`` the longest pair's length,
+    ``filled`` (m * m,) bool the slots of a pair, on the mesh's device;
+    ``idx`` (U, maxlen) the same positions padded with 9c, on the host, for
+    the twin."""
+
+    m: int
+    slots: torch.Tensor
+    offsets: torch.Tensor
+    positions: torch.Tensor
+    maxlen: int
+    filled: torch.Tensor
+    idx: np.ndarray
+
+
+# (id(mesh.cells), block, n) -> CoarsePlan, dropped when the cells are freed
+_PLANS: dict = {}
+
+
+def coarse_plan(mesh, block: int) -> CoarsePlan:
+    """The :class:`CoarsePlan` of ``mesh`` for aggregates of ``block``
+    nodes, built on the host once per (cells, block, n): the gather plan
+    of solve/precond.coarse_inverse, over the keys row aggregate * m +
+    column aggregate of the 9c entries, as one list of positions."""
+    key = (id(mesh.cells), block, mesh.n_nodes)
+    plan = _PLANS.get(key)
+    if plan is None:
+        m = -(-mesh.n_nodes // block)
+        agg = mesh.cells.cpu().numpy().astype(np.int64) // block
+        slots, idx = gather_plan(
+            (agg[:, :, None] * m + agg[:, None, :]).reshape(-1))
+        counts = (idx < 9 * mesh.n_cells).sum(axis=1)
+        order = np.argsort(-counts, kind="stable")
+        slots, idx, counts = slots[order], idx[order], counts[order]
+        offsets = np.concatenate([[0], np.cumsum(counts)])
+        filled = np.zeros(m * m, bool)
+        filled[slots] = True
+        dev = mesh.cells.device
+        plan = CoarsePlan(
+            m=m, slots=torch.as_tensor(slots, device=dev),
+            offsets=torch.as_tensor(offsets.astype(np.int32), device=dev),
+            positions=torch.as_tensor(
+                idx[idx < 9 * mesh.n_cells].astype(np.int32), device=dev),
+            maxlen=idx.shape[1], filled=torch.as_tensor(filled, device=dev),
+            idx=idx)
+        _PLANS[key] = plan
+        weakref.finalize(mesh.cells, _PLANS.pop, key, None)
+    return plan
+
+
+def coarse_plain(mesh, J_c, dirichlet, block: int):
+    """The coarse operators (M, m, m) of the element Jacobians J_c
+    (M, c, 3, 3): the free-masked entries gathered through the plan and
+    summed left to right, the sum of solve/precond.coarse_inverse before its
+    inverse, for all members at once."""
+    plan = coarse_plan(mesh, block)
+    M = J_c.shape[0]
+    free = (~dirichlet).to(J_c.dtype)
+    wc = free[mesh.cells]                                        # (c, 3)
+    flat = (-J_c * (wc[:, :, None] * wc[:, None, :])).reshape(M, -1)
+    ext = torch.cat([flat, flat.new_zeros(M, 1)], dim=1)
+    out = flat.new_zeros(M, plan.m * plan.m)
+    idx = torch.as_tensor(plan.idx, device=J_c.device)
+    out[:, plan.slots] = fixed_sum(ext[:, idx], 2)
+    return out.reshape(M, plan.m, plan.m)
+
+
+def coarse(mesh, J_c, dirichlet, block: int):
+    """The two-level preconditioner's Galerkin coarse operators (M, m, m),
+    m = ceil(n / block), of M members' element Jacobians J_c (M, c, 3, 3)
+    and the bool (n,) Dirichlet mask: one launch of ``coarse_batched`` on
+    CUDA tensors (or an error: no fallback), else :func:`coarse_plain`;
+    the two are bitwise equal."""
+    c, n = mesh.n_cells, mesh.n_nodes
+    device = mesh.cells.device
+    if (J_c.dim() != 4 or tuple(J_c.shape[1:]) != (c, 3, 3)
+            or J_c.dtype not in (torch.float32, torch.float64)
+            or J_c.device != device):
+        raise ValueError(f"J_c must be float32 or float64 (M, {c}, 3, 3) on "
+                         f"{device}, got {J_c.dtype} {tuple(J_c.shape)} on "
+                         f"{J_c.device}")
+    if (dirichlet.dtype != torch.bool or tuple(dirichlet.shape) != (n,)
+            or dirichlet.device != device):
+        raise ValueError(f"dirichlet must be bool ({n},) on {device}, got "
+                         f"{dirichlet.dtype} {tuple(dirichlet.shape)} on "
+                         f"{dirichlet.device}")
+    if block < 1 or 9 * c >= 2 ** 31:
+        raise ValueError(f"coarse takes block >= 1 and fewer than 2**31 / 9 "
+                         f"cells, got block {block}, {c} cells")
+    if device.type == "cpu":
+        return coarse_plain(mesh, J_c, dirichlet, block)
+    if not mesh.cells.is_contiguous() or mesh.cells.dtype != torch.int64:
+        raise ValueError("cells must be contiguous int64")
+    lib = _mesh_library(mesh)
+    plan = coarse_plan(mesh, block)
+    if J_c.stride()[1:] != (9, 3, 1):
+        J_c = J_c.contiguous()
+    dirichlet = dirichlet.contiguous()
+    M = J_c.shape[0]
+    out = torch.empty((M, plan.m, plan.m), dtype=J_c.dtype, device=device)
+    _call(lib, "coarse_batched", J_c.dtype, device, J_c.data_ptr(),
+          J_c.stride(0), dirichlet.data_ptr(), mesh.cells.data_ptr(),
+          plan.slots.data_ptr(), plan.offsets.data_ptr(),
+          plan.positions.data_ptr(), plan.slots.shape[0], plan.maxlen,
+          plan.filled.data_ptr(), plan.m * plan.m, M, out.data_ptr())
     return out

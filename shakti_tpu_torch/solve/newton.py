@@ -405,7 +405,7 @@ def newton_solve_batched(N_init, pre, mesh, dirichlet, dirichlet_value,
         with span("newton.precond"):
             minv = pc.make_preconditioner_batched(
                 cfg.precond, mesh, dirichlet, a_diag, cfg.coarse_block,
-                vals=vals, J_c=J_c, matvecs=matvecs, mg_omega=cfg.mg_omega,
+                J_c=J_c, matvecs=matvecs, mg_omega=cfg.mg_omega,
                 mg_smoother=cfg.mg_smoother, mg_cheb_deg=cfg.mg_cheb_deg,
                 mg_cheb_frac=cfg.mg_cheb_frac, mg_cycle=cfg.mg_cycle,
                 mg_smooth_p=cfg.mg_smooth_p)

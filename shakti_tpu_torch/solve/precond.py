@@ -24,6 +24,7 @@ import torch
 
 from shakti_tpu_torch.fem.ops import (chunked_plan, chunked_sum, gather_plan,
                                       plan_sum)
+from shakti_tpu_torch.ops import element_cuda
 PRECONDITIONERS = ("jacobi", "two_level", "mg")
 
 
@@ -352,26 +353,24 @@ def make_preconditioner(name: str, mesh, dirichlet, a_diag,
 
 
 def make_preconditioner_batched(name: str, mesh, dirichlet, a_diag,
-                                coarse_block: int = 64, *, vals=None,
-                                J_c=None, matvecs=None, **mg_kw):
+                                coarse_block: int = 64, *, J_c=None,
+                                matvecs=None, **mg_kw):
     """:func:`make_preconditioner` for an ensemble's M operators (a_diag
-    (M, n), ``vals`` (M, ...) or ``J_c`` (M, c, 3, 3), ``matvecs`` the
-    members' single matvecs): an apply (M, n) -> (M, n).  Jacobi and
-    two-level are batched (the coarse inverses (M, m, m), built per member
-    by ``torch.func.vmap``); 'mg' builds and applies each member's own
-    V-cycle in turn (a batched mg apply is future work)."""
+    (M, n), ``J_c`` (M, c, 3, 3), ``matvecs`` the members' single matvecs):
+    an apply (M, n) -> (M, n).  Jacobi and two-level are batched (the coarse
+    operators from ops/element_cuda.coarse, their inverses (M, m, m) by
+    ``torch.func.vmap``); 'mg' builds and applies each member's own V-cycle
+    in turn (a batched mg apply is future work)."""
     if name == "mg" and mesh.mg is not None:
         applies = [make_preconditioner(
             "mg", mesh, dirichlet, a_diag[m], coarse_block, J_c=J_c[m],
             matvec=matvecs[m], **mg_kw) for m in range(a_diag.shape[0])]
         return lambda r: torch.stack([f(r[m]) for m, f in enumerate(applies)])
     if name in ("mg", "two_level"):
-        if vals is not None and vals_coarse_ok(mesh, coarse_block):
-            A_inv = torch.func.vmap(lambda v: coarse_from_values(
-                v, mesh, dirichlet, coarse_block))(vals)
-        else:
-            A_inv = torch.func.vmap(lambda J: coarse_inverse(
-                J, mesh, dirichlet, coarse_block))(J_c)
+        A_c = element_cuda.coarse(mesh, J_c, dirichlet, coarse_block)
+        m, dtype = A_c.shape[-1], A_c.dtype
+        A_inv = torch.func.vmap(lambda A: regularized_inverse(
+            A, m, dtype, torch.finfo(dtype).tiny))(A_c)
         return two_level_from_inverse(A_inv, a_diag, dirichlet, coarse_block,
                                       mesh.n_nodes)
     return make_preconditioner(name, mesh, dirichlet, a_diag, coarse_block)
